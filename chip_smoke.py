@@ -11,21 +11,37 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    (one ``nvcc`` per source, all at once);
 2. print the device and its power limit;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it and at odd shapes: the gain kernels must
-   be exactly equal, the rating kernel allclose (rtol 1e-6) and
-   bit-identical across two launches; time kernel, plain version and the
-   library yardstick, and compute the least time the card could take;
+   shapes the main paths give it and at odd shapes: the gain kernels
+   (population and one-member forms) must be exactly equal, the rating
+   kernels allclose (rtol 1e-6) and bit-identical across two launches,
+   and every row of the batched rating kernel bit-equal to the scalar
+   kernel on that row; time kernel, plain version and the library
+   yardstick, and compute the least time the card could take;
 4. a small instance refined on the card and on the CPU under host
    coarsening must give the same partition and cut;
-5. the main path: ``impart_partition`` on ``ispd_like("ibm08_like")`` at
-   k=64 (stream gain kernel) and on ``ispd_like("ibm01_like")`` at k=16
-   (table gain kernel), with the launch counters zeroed before each run
-   and read after it, the cut and balance recomputed in numpy.
+5. the memetic-off paths: ``impart_partition`` without recombination,
+   mutation and V-cycle on ``ispd_like("ibm08_like")`` at k=64 (stream
+   gain kernel) and on ``ispd_like("ibm01_like")`` at k=16 (table gain
+   kernel);
+6. the memetic path: ``impart_partition`` on ``ibm08_like`` at k=64 with
+   the reference defaults (alpha 7, beta 7, recombination, mutation, one
+   final V-cycle), with its recombination branches counted and its time
+   split into recombination, mutation, final V-cycle and the rest;
+7. the partition CLI: ``python -m repro_torch.launch.partition --method
+   multilevel`` in a child process on ``ibm08_like`` (k=64, one-member
+   stream kernel) and ``ibm01_like`` (k=16, one-member table kernel); its
+   saved assignment is reloaded and checked.
 
-With ``--profile`` the script then splits each main-path run into its
-phases (coarsening, initial partition, LP, FM; host clock around
-synchronized work) and traces the ibm08 run with ``torch.profiler`` to
-report the device's busy share and its top kernels.
+Every main path runs with the launch counters zeroed just before it and
+read just after it, and its cut and balance are recomputed in numpy.
+
+``--phases`` takes a comma list of ``kernels,parity,off,memetic,cli``
+(default: all) for runs that debug one phase; the kernels line is only
+printed when every phase ran.  With ``--profile`` the script then splits
+each memetic-off run into its phases (coarsening, initial partition, LP,
+FM; host clock around synchronized work) and traces the ibm08 run with
+``torch.profiler`` to report the device's busy share and its top
+kernels.
 
 The line before the last holds the kernels as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -38,6 +54,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -54,7 +71,14 @@ KERNEL_META = {
                     "src/repro/kernels/gain.py:257"),
     "rating_segment_sum": ("src/repro_torch/kernels/csrc/rating.cu",
                            "src/repro/kernels/rating.py:93"),
+    "rating_segment_sum_batch": ("src/repro_torch/kernels/csrc/rating.cu",
+                                 "src/repro/kernels/rating.py:157"),
+    "gain_table_one": ("src/repro_torch/kernels/csrc/gain.cu",
+                       "src/repro/kernels/gain.py:75"),
+    "gain_stream_one": ("src/repro_torch/kernels/csrc/gain.cu",
+                        "src/repro/kernels/gain.py:190"),
 }
+PHASES = ("kernels", "parity", "off", "memetic", "cli")
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -164,6 +188,132 @@ def check_gain_kernels(report, dev):
         report[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                             bound_ms=bound, bound_by=by, library_ms=lib_ms)
         torch.cuda.empty_cache()
+
+
+def check_gain_one_kernels(report, dev):
+    """The one-member gain kernels (#5/#6) against their plain versions,
+    at the multilevel baseline's finest-level shapes and odd shapes."""
+    import torch
+    from repro_torch.data.hypergraphs import ispd_like
+    from repro_torch.kernels import gain, ref
+    cases = {
+        "gain_stream_one": (gain.gain_stream, ref.gain_stream_ref,
+                            ("ibm08_like", 64)),
+        "gain_table_one": (gain.gain_gather, ref.gain_gather_ref,
+                           ("ibm01_like", 16)),
+    }
+    odd = [(1, 1000, 8, 700, 2), (1, 1000, 8, 700, 33),
+           (1, 777, 16, 1500, 64), (1, 300, 24, 513, 1024)]
+    for name, (kern, plain, (design, k)) in cases.items():
+        errs = []
+        for i, shape in enumerate(odd):
+            inc, bi, wi = _odd_gain_inputs(*shape, seed=10 + i, dev=dev)
+            bi, wi = bi[0], wi[0]
+            got, want = kern(inc, bi, wi), plain(inc, bi, wi)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"at {shape}")
+            errs.append(float((got - want).abs().max()))
+        inc, bi, wi = _gain_inputs(ispd_like(design, 1.0), k, 1, 0, dev)
+        bi, wi = bi[0], wi[0]
+        got, want = kern(inc, bi, wi), plain(inc, bi, wi)
+        again = kern(inc, bi, wi)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError(f"{name} differs from its plain version on "
+                                 f"{design} k={k}")
+        errs.append(float((got - want).abs().max()))
+        ms = _time_ms(lambda: kern(inc, bi, wi))
+        plain_ms = _time_ms(lambda: plain(inc, bi, wi), iters=5)
+        lib_ms = _time_ms(
+            lambda: ref.gain_gather_embedding_bag(inc, bi[None]))
+        bound, by = _gain_bound(inc, bi[None])
+        print(f"[kernel] {name} {design} incident={tuple(inc.shape)} "
+              f"table={tuple(bi.shape)}: exact at main-path and "
+              f"{len(odd)} odd shapes")
+        for label, val in (("ms", ms), ("plain_ms", plain_ms),
+                           ("library_ms", lib_ms), ("bound_ms", bound)):
+            print(f"[kernel] {name} {label} {val!r}")
+        report[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        torch.cuda.empty_cache()
+
+
+def _rating_batch_checked(vals, segs, s: int, what: str) -> float:
+    """One batched launch against the plain version (rtol 1e-6), against
+    alpha launches of the scalar kernel (bit for bit) and against a
+    second launch (bit for bit); returns the largest absolute error."""
+    import torch
+    from repro_torch.kernels import rating, ref
+    got = rating.rating_segment_sum_batch(vals, segs, s)
+    again = rating.rating_segment_sum_batch(vals, segs, s)
+    rows = torch.stack([rating.rating_segment_sum(row, segs, s)
+                        for row in vals])
+    want = ref.rating_segment_sum_batch_ref(vals, segs, s)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+    if not torch.equal(got, rows):
+        raise AssertionError(f"batched rating rows differ from the scalar "
+                             f"kernel at {what}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"batched rating kernel not bit-stable at "
+                             f"{what}")
+    return float((got - want).abs().max())
+
+
+def check_rating_batch_kernel(report, dev):
+    """The batched rating kernel (#4) at odd shapes and at the mutation
+    cohort's shape on ibm08_like: alpha 7 reweighted rows over the
+    finest level's C = 4 * p_pad candidates."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dcoarsen
+    from repro_torch.data.hypergraphs import ispd_like
+    from repro_torch.kernels import rating, ref
+    errs = []
+    rng = np.random.default_rng(1)
+    for alpha, c, s in ((1, 512, 512), (3, 1000, 300), (5, 130, 1000),
+                        (3, 4099, 64), (5, 100_003, 20_000)):
+        segs = np.sort(rng.integers(0, s, c)).astype(np.int32)
+        segs[: min(c // 8, 7)] = -1          # ids < 0 are dropped
+        vals = (rng.random((alpha, c)) + 0.1).astype(np.float32)
+        # a long run of zeros at the end, like the ghost pairs' segment
+        segs[-c // 3:] = s - 1
+        vals[:, -c // 3:] = 0.0
+        errs.append(_rating_batch_checked(
+            torch.from_numpy(vals).to(dev), torch.from_numpy(segs).to(dev),
+            s, (alpha, c, s)))
+    hg = ispd_like("ibm08_like", 1.0)
+    hga = hg.arrays(device=dev)
+    alpha = 7
+    parts = torch.zeros((alpha, hga.n_pad), dtype=torch.int32, device=dev)
+    ew = np.zeros((alpha, hga.m_pad), np.float32)
+    ew[:, : hg.m] = hg.edge_weights * (
+        1.0 + 0.1 * rng.integers(0, alpha, (alpha, hg.m)))
+    _, _, r_pop, seg = dcoarsen._sorted_candidates_population(
+        hga, parts, torch.from_numpy(ew).to(dev),
+        max_stride=dcoarsen.MAX_STRIDE, max_edge_size=dcoarsen.MAX_EDGE_SIZE)
+    c = r_pop.shape[1]
+    errs.append(_rating_batch_checked(r_pop, seg, c, "ibm08_like"))
+    ms = _time_ms(lambda: rating.rating_segment_sum_batch(r_pop, seg, c))
+    plain_ms = _time_ms(
+        lambda: ref.rating_segment_sum_batch_ref(r_pop, seg, c))
+    ids = (torch.arange(alpha, device=dev)[:, None] * c
+           + seg.long()[None]).reshape(-1)
+    flat = r_pop.reshape(-1)
+    lib_ms = _time_ms(lambda: torch.zeros(
+        alpha * c, dtype=torch.float32, device=dev).index_add_(0, ids, flat))
+    bound, by = _bound_ms(4 * alpha * c + 4 * c + 4 * alpha * c, alpha * c)
+    print(f"[kernel] rating_segment_sum_batch ibm08_like alpha={alpha} "
+          f"C={c}: allclose rtol=1e-6, rows bit-equal to the scalar kernel, "
+          "bit-stable, at main-path and 5 odd shapes")
+    for label, val in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", bound)):
+        print(f"[kernel] rating_segment_sum_batch {label} {val!r}")
+    report["rating_segment_sum_batch"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=by, library_ms=lib_ms)
 
 
 def check_rating_kernel(report, dev):
@@ -288,6 +438,155 @@ def run_main_path(design: str, k: int, must_launch, eps: float = 0.03):
     if missing:
         raise AssertionError(f"{design}: kernels never launched on the main "
                              f"path: {missing}")
+    return counts, res.cut
+
+
+class _Timed:
+    """Wrap ``module.name`` so that every call is counted and timed on
+    the host clock around synchronized work; ``restore`` undoes it."""
+
+    def __init__(self, module, name: str):
+        import torch
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls, self.seconds = 0, 0.0
+
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return self.fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t
+                self.calls += 1
+        setattr(module, name, wrapped)
+
+    def restore(self) -> None:
+        setattr(self.module, self.name, self.fn)
+
+
+def run_memetic_path(design: str, k: int, off_cut, must_launch,
+                     eps: float = 0.03, beta: int = 7):
+    """``impart_partition`` with the reference defaults (recombination,
+    mutation, one final V-cycle) on the card.  Counts the recombination
+    branches by wrapping the module functions, and splits the wall time
+    into recombination, mutation, final V-cycle and the rest."""
+    import torch
+    from repro_torch.core import ilp, impart, mutate, recombine
+    from repro_torch.core.impart import ImpartConfig, impart_partition
+    from repro_torch.data.hypergraphs import ispd_like
+    from repro_torch.kernels import ops
+    hg = ispd_like(design, 1.0)
+    cfg = ImpartConfig(k=k, eps=eps, alpha=7, beta=beta)
+    wraps = {
+        "recombine": _Timed(recombine, "recombine"),
+        "exact": _Timed(ilp, "solve_exact"),
+        "ils": _Timed(recombine, "_ils_clustered"),
+        "vcycle": _Timed(recombine, "vcycle"),
+        "mutation cohorts": _Timed(mutate, "vcycle_population"),
+        "phase recombination": _Timed(impart, "ring_recombination"),
+        "phase mutation": _Timed(impart, "mutate_population"),
+        "phase final V-cycle": _Timed(impart, "vcycle"),
+    }
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = impart_partition(hg, cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        for w in wraps.values():
+            w.restore()
+    cut, balanced, bw_max, cap = host_cut_and_balance(hg, res.part, k, eps)
+    events = [t[2] for t in res.trace]
+    n_rec = wraps["recombine"].calls
+    branches = dict(exact=wraps["exact"].calls, ils=wraps["ils"].calls,
+                    vcycle=wraps["vcycle"].calls)
+    branches["identical parents"] = n_rec - sum(branches.values())
+    phases = {n[len("phase "):]: w.seconds for n, w in wraps.items()
+              if n.startswith("phase ")}
+    phases["levels (coarsening, initial, refinement)"] = (
+        wall - sum(phases.values()))
+    print(f"[memetic] {design} n={hg.n} m={hg.m} k={k} eps={eps} alpha="
+          f"{cfg.alpha} beta={cfg.beta} final_vcycles={cfg.final_vcycles}: "
+          f"levels {res.levels}")
+    print(f"[memetic] {design} wall_s {wall!r} cut {res.cut!r} host cut "
+          f"{cut!r} memetic-off cut {off_cut!r} max block weight "
+          f"{bw_max!r} cap {cap!r}")
+    print(f"[memetic] {design} events {events}")
+    print(f"[memetic] {design} recombinations {n_rec}: {branches}; "
+          f"mutation events that re-partitioned a cohort: "
+          f"{wraps['mutation cohorts'].calls} of {cfg.beta}")
+    print(f"[memetic] {design} phase split (s): "
+          + ", ".join(f"{n} {v!r}" for n, v in phases.items()))
+    print(f"[memetic] {design} launches {counts}")
+    if cut != res.cut or not balanced:
+        raise AssertionError(f"{design}: host cut {cut} vs {res.cut}, "
+                             f"balanced={balanced}")
+    for tag in ("recombine@", "mutate@", "final-vcycle@0"):
+        if not any(e.startswith(tag) for e in events):
+            raise AssertionError(f"{design}: no {tag} event in the trace")
+    missing = [n for n in must_launch if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"{design}: kernels never launched on the "
+                             f"memetic path: {missing}")
+    return counts
+
+
+_CLI_CHILD = """
+import json, sys
+from repro_torch.kernels import ops
+from repro_torch.launch import partition
+ops.reset_launch_counts()
+partition.main(sys.argv[1:])
+print("[launches] " + json.dumps(ops.launch_counts()), flush=True)
+"""
+
+
+def run_cli(design: str, k: int, must_launch, eps: float = 0.08):
+    """The partition CLI's ``multilevel`` method in a child process (the
+    CLI's ``main``, with the child's launch counters zeroed just before
+    it and printed just after), then its saved assignment reloaded and
+    its cut and balance recomputed in numpy."""
+    import numpy as np
+    from repro_torch.data.hypergraphs import ispd_like
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        out = os.path.join(tmp, "part.npy")
+        args = ["--method", "multilevel", "--alpha", "1", "--scale", "1.0",
+                "--design", design, "--k", str(k), "--eps", str(eps),
+                "--out", out]
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _CLI_CHILD, *args],
+                              capture_output=True, text=True, env=env,
+                              cwd=ROOT, timeout=600)
+        wall = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            print(f"[cli] {design} k={k} | {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        part = np.load(out)
+    counts = json.loads([ln for ln in proc.stdout.splitlines()
+                         if ln.startswith("[launches] ")][-1][11:])
+    printed = [ln for ln in proc.stdout.splitlines()
+               if "multilevel: cut=" in ln][-1]
+    printed_cut = float(printed.split("cut=")[1].split()[0])
+    hg = ispd_like(design, 1.0)
+    cut, balanced, bw_max, cap = host_cut_and_balance(hg, part, k, eps)
+    print(f"[cli] {design} k={k} child wall_s {wall!r} host cut {cut!r} "
+          f"printed cut {printed_cut!r} max block weight {bw_max!r} cap "
+          f"{cap!r}")
+    if cut != printed_cut or not balanced:
+        raise AssertionError(f"CLI {design}: host cut {cut} vs printed "
+                             f"{printed_cut}, balanced={balanced}")
+    missing = [n for n in must_launch if counts.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"CLI {design}: kernels never launched: "
+                             f"{missing}")
     return counts
 
 
@@ -374,6 +673,7 @@ def trace_main_path(design: str, k: int, eps: float = 0.03,
 
 def main() -> int:
     import torch
+    sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
@@ -400,22 +700,57 @@ def main() -> int:
     print(f"[device] {torch.cuda.get_device_name(0)} | {smi} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
 
+    phases = PHASES
+    for arg in sys.argv[1:]:
+        if arg.startswith("--phases="):
+            phases = tuple(arg.split("=", 1)[1].split(","))
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        print(f"chip_smoke: unknown phases {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
+
     report = {}
-    check_gain_kernels(report, dev)
-    check_rating_kernel(report, dev)
-    check_small_parity()
+    if "kernels" in phases:
+        check_gain_kernels(report, dev)
+        check_gain_one_kernels(report, dev)
+        check_rating_kernel(report, dev)
+        check_rating_batch_kernel(report, dev)
+    if "parity" in phases:
+        check_small_parity()
     launches = {name: 0 for name in KERNEL_META}
-    for design, k, must in (("ibm08_like", 64, ("gain_stream",
-                                                 "rating_segment_sum")),
-                            ("ibm01_like", 16, ("gain_table",
-                                                "rating_segment_sum"))):
-        counts = run_main_path(design, k, must)
+
+    def add(counts):
         for name in launches:
-            launches[name] += counts[name]
+            launches[name] += counts.get(name, 0)
+
+    off_cut = None
+    if "off" in phases or "memetic" in phases:
+        for design, k, must in (("ibm08_like", 64, ("gain_stream",
+                                                     "rating_segment_sum")),
+                                ("ibm01_like", 16, ("gain_table",
+                                                    "rating_segment_sum"))):
+            if design != "ibm08_like" and "off" not in phases:
+                continue
+            counts, cut = run_main_path(design, k, must)
+            add(counts)
+            if design == "ibm08_like":
+                off_cut = cut
+    if "memetic" in phases:
+        add(run_memetic_path("ibm08_like", 64, off_cut,
+                             ("rating_segment_sum_batch",
+                              "rating_segment_sum", "gain_stream")))
+    if "cli" in phases:
+        for design, k, must in (("ibm08_like", 64, ("gain_stream_one",)),
+                                ("ibm01_like", 16, ("gain_table_one",))):
+            add(run_cli(design, k, must))
     if "--profile" in sys.argv[1:]:
         for design, k in (("ibm08_like", 64), ("ibm01_like", 16)):
             profile_main_path(design, k)
         trace_main_path("ibm08_like", 64)
+    if set(phases) != set(PHASES):
+        print(f"[smoke] ran phases {list(phases)} only: no result line")
+        return 3
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

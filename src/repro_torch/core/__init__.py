@@ -1,19 +1,34 @@
 """IMPart core of the port: data structures, metrics, refinement,
-coarsening and the static driver (counterpart of ``repro.core``)."""
+coarsening, the memetic operators, the baselines and the static driver
+(counterpart of ``repro.core``).  Unlike ``repro.core``, the package
+does not re-export the functions ``recombine`` and ``vcycle``, which
+would hide the modules of the same names."""
 from .hypergraph import (Hypergraph, HypergraphArrays, HierarchyArrays,
                          contract, contract_arrays, project_partition)
 from .coarsen import coarsen, recombination_thresholds, Hierarchy, Level
-from .dcoarsen import build_hierarchy, device_coarsen, coarsen_path
+from .dcoarsen import (build_hierarchy, device_coarsen, coarsen_path,
+                       population_coarsen, PopulationHierarchy)
 from .initial_partition import initial_partition, initial_partition_population
 from .impart import impart_partition, ImpartConfig, ImpartResult
-from . import metrics, refine
+from .baselines import (multilevel_partition, multilevel_best_of,
+                        external_memetic, MultilevelResult)
+from .recombine import ring_recombination, overlay_clustering
+from .mutate import mutate_population, mutate_path, similarity_sets
+from .vcycle import vcycle_population
+from . import metrics, refine, ilp
 
 __all__ = [
     "Hypergraph", "HypergraphArrays", "HierarchyArrays", "contract",
     "contract_arrays", "project_partition",
     "coarsen", "recombination_thresholds", "Hierarchy", "Level",
     "build_hierarchy", "device_coarsen", "coarsen_path",
+    "population_coarsen", "PopulationHierarchy",
     "initial_partition", "initial_partition_population",
     "impart_partition", "ImpartConfig", "ImpartResult",
-    "metrics", "refine",
+    "multilevel_partition", "multilevel_best_of", "external_memetic",
+    "MultilevelResult",
+    "ring_recombination", "overlay_clustering",
+    "mutate_population", "mutate_path", "similarity_sets",
+    "vcycle_population",
+    "metrics", "refine", "ilp",
 ]

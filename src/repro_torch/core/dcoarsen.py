@@ -20,20 +20,30 @@ Each round runs on the device, on fixed padded shapes, so every level's
 Both engines take their control flow from ``coarsen.round_schedule``.
 ``REPRO_COARSEN_PATH=device|host`` forces an engine; auto picks the
 device engine on a CUDA device and the numpy engine on the CPU.
+
+The mutation cohort takes a third road (DESIGN.md §10):
+``population_coarsen`` builds one shared-structure hierarchy for all
+flagged members at once, always with the device engine (on CPU tensors
+too, as the reference does): candidate pairs restricted to vertices
+that share a block in every member, per-member ratings aggregated by
+the batched rating kernel (``ops.rating_segment_sum_batch``), one
+consensus matching from the members' ratings summed in member order,
+and one contraction that carries every member's edge-weight row.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.env import resolve_device, warn_env_once
 from .hypergraph import (Hypergraph, HypergraphArrays, HierarchyArrays,
-                         DeviceLevel, contract_arrays, _round_pow2,
-                         _INCIDENCE_LANE_PAD, _INCIDENCE_MAX_EXPANSION)
+                         DeviceLevel, contract_arrays, _pad_cols,
+                         _round_pow2, _INCIDENCE_LANE_PAD,
+                         _INCIDENCE_MAX_EXPANSION)
 from .coarsen import Hierarchy, coarsen, round_schedule
 
 #: Pair-candidate sampling, mirroring the host ``_candidate_pairs``
@@ -119,6 +129,26 @@ def _stride_candidates(hga: HypergraphArrays, *, max_stride: int,
             pe.repeat(max_stride))
 
 
+def _sort_pairs(hga: HypergraphArrays, u: torch.Tensor, v: torch.Tensor,
+                valid: torch.Tensor):
+    """Sort candidate pairs so duplicates are adjacent, ghosts last.
+
+    Returns ``(lo, hi, order, seg)``: the sorted endpoints (int64), the
+    stable sort permutation of the candidate slots, and the sorted
+    segment id of every slot (int32, one id per distinct pair)."""
+    n_pad = hga.n_pad
+    ghost_v = n_pad - 1
+    lo = torch.where(valid, torch.minimum(u, v), ghost_v)
+    hi = torch.where(valid, torch.maximum(u, v), ghost_v)
+    order = torch.argsort(lo * n_pad + hi, stable=True)
+    lo, hi = lo[order], hi[order]
+    c = lo.shape[0]
+    newg = torch.ones(c, dtype=torch.bool, device=lo.device)
+    newg[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
+    seg = (torch.cumsum(newg.to(torch.int32), 0) - 1).to(torch.int32)
+    return lo, hi, order, seg
+
+
 def _sorted_candidates(hga: HypergraphArrays, part, *, max_stride: int,
                        max_edge_size: int):
     """Candidate pairs sorted so duplicates are adjacent, ghosts last.
@@ -131,8 +161,6 @@ def _sorted_candidates(hga: HypergraphArrays, part, *, max_stride: int,
     the keys are those of the reference and ``r`` keeps candidate order
     inside every run.
     """
-    n_pad = hga.n_pad
-    ghost_v = n_pad - 1
     sizes = hga.edge_sizes
     unit = torch.where(sizes > 1,
                        hga.edge_weights / torch.clamp(sizes - 1, min=1), 0.0)
@@ -140,16 +168,9 @@ def _sorted_candidates(hga: HypergraphArrays, part, *, max_stride: int,
         hga, max_stride=max_stride, max_edge_size=max_edge_size)
     if part is not None:
         valid = valid & (part[u] == part[v])
-    lo = torch.where(valid, torch.minimum(u, v), ghost_v)
-    hi = torch.where(valid, torch.maximum(u, v), ghost_v)
     r = torch.where(valid, unit[pe_cat], 0.0)
-    order = torch.argsort(lo * n_pad + hi, stable=True)
-    lo, hi, r = lo[order], hi[order], r[order]
-    c = lo.shape[0]
-    newg = torch.ones(c, dtype=torch.bool, device=lo.device)
-    newg[1:] = (lo[1:] != lo[:-1]) | (hi[1:] != hi[:-1])
-    seg = (torch.cumsum(newg.to(torch.int32), 0) - 1).to(torch.int32)
-    return lo, hi, r, seg
+    lo, hi, order, seg = _sort_pairs(hga, u, v, valid)
+    return lo, hi, r[order], seg
 
 
 def _pair_ratings(hga: HypergraphArrays, part, *, max_stride: int,
@@ -161,21 +182,26 @@ def _pair_ratings(hga: HypergraphArrays, part, *, max_stride: int,
     slots carrying ``lo == hi == n_pad - 1`` and rating 0.
     """
     from repro_torch.kernels import ops
-    ghost_v = hga.n_pad - 1
     lo, hi, r, seg = _sorted_candidates(hga, part, max_stride=max_stride,
                                         max_edge_size=max_edge_size)
-    c = lo.shape[0]
-    agg = ops.rating_segment_sum(r, seg, c)
+    agg = ops.rating_segment_sum(r, seg, lo.shape[0])
+    lo_g, hi_g, norm = _representatives(hga, lo, hi, seg)
+    return lo_g, hi_g, agg / norm
 
-    # representative (lo, hi) per segment + weight normalisation
+
+def _representatives(hga: HypergraphArrays, lo: torch.Tensor,
+                     hi: torch.Tensor, seg: torch.Tensor):
+    """Representative (lo, hi) per segment slot (ghost for unused slots)
+    and the weight normalisation ``c(lo) * c(hi)`` (floored at 1e-12)."""
+    ghost_v = hga.n_pad - 1
+    c = lo.shape[0]
     seg64 = seg.long()
     lo_g = torch.full((c,), ghost_v, dtype=torch.int64,
                       device=lo.device).scatter_reduce(0, seg64, lo, "amin")
     hi_g = torch.full((c,), ghost_v, dtype=torch.int64,
                       device=lo.device).scatter_reduce(0, seg64, hi, "amin")
     cw = hga.vertex_weights
-    agg = agg / torch.clamp(cw[lo_g] * cw[hi_g], min=1e-12)
-    return lo_g, hi_g, agg
+    return lo_g, hi_g, torch.clamp(cw[lo_g] * cw[hi_g], min=1e-12)
 
 
 def draw_jitter(gen: torch.Generator, c: int,
@@ -382,3 +408,203 @@ def device_coarsen(hg: Hypergraph, k: int, *,
                                   n=n_new, m=m_new, p=p_new, part=new_part))
         cur, cur_part, n_cur = coarse, new_part, n_new
     return HierarchyArrays(levels=levels)
+
+
+# --------------------------------------------------------------------------
+# population coarsening for the mutation cohort (DESIGN.md §10): one
+# shared structure, alpha edge-weight rows, alpha partitions
+# --------------------------------------------------------------------------
+def _sorted_candidates_population(hga: HypergraphArrays,
+                                  parts: torch.Tensor, ew_pop: torch.Tensor,
+                                  *, max_stride: int, max_edge_size: int):
+    """The population form of ``_sorted_candidates``: one shared sort of
+    the pairs that share a block in every member of ``parts`` [alpha,
+    n_pad], and the per-member unnormalised ratings ``r_pop`` [alpha, C]
+    (contiguous) from the edge-weight rows ``ew_pop`` [alpha, m_pad]."""
+    sizes = hga.edge_sizes
+    unit_pop = torch.where(sizes[None] > 1,
+                           ew_pop / torch.clamp(sizes - 1, min=1)[None], 0.0)
+    u, v, valid, pe_cat = _stride_candidates(
+        hga, max_stride=max_stride, max_edge_size=max_edge_size)
+    valid = valid & (parts[:, u] == parts[:, v]).all(dim=0)
+    lo, hi, order, seg = _sort_pairs(hga, u, v, valid)
+    r_pop = torch.where(valid[None], unit_pop[:, pe_cat], 0.0)[:, order]
+    return lo, hi, r_pop.contiguous(), seg
+
+
+def _pair_ratings_population(hga: HypergraphArrays, parts: torch.Tensor,
+                             ew_pop: torch.Tensor, *, max_stride: int,
+                             max_edge_size: int, batch: bool):
+    """Per-member aggregated, weight-normalised heavy-edge ratings over
+    one shared candidate structure.
+
+    ``parts`` [alpha, n_pad] restricts candidates to pairs that share a
+    block in every member, so every member's partition projects exactly
+    through the shared hierarchy; ``ew_pop`` [alpha, m_pad] are the
+    per-member edge weights.  Returns ``(lo, hi, rating_pop)`` with
+    ``rating_pop`` [alpha, C].  ``batch`` sums the members' ratings with
+    one batched kernel launch; otherwise with one scalar launch per
+    member (the ``REPRO_MUTATE_PATH=loop`` reference).  Both give the
+    same bits: the stable sort permutation is shared and every row is
+    reduced in the same order.
+    """
+    from repro_torch.kernels import ops
+    lo, hi, r_pop, seg = _sorted_candidates_population(
+        hga, parts, ew_pop, max_stride=max_stride,
+        max_edge_size=max_edge_size)
+    c = lo.shape[0]
+    if batch:
+        agg_pop = ops.rating_segment_sum_batch(r_pop, seg, c)
+    else:
+        agg_pop = torch.stack([ops.rating_segment_sum(row.contiguous(),
+                                                      seg, c)
+                               for row in r_pop])
+    lo_g, hi_g, norm = _representatives(hga, lo, hi, seg)
+    return lo_g, hi_g, agg_pop / norm[None]
+
+
+def _member_sum(rows: torch.Tensor) -> torch.Tensor:
+    """Sum of the rows of ``rows`` [alpha, C], added in member order
+    a = 0..alpha-1 on every device."""
+    acc = rows[0].clone()
+    for row in rows[1:]:
+        acc += row
+    return acc
+
+
+def _coarsen_round_population(hga: HypergraphArrays, parts: torch.Tensor,
+                              ew_pop: torch.Tensor, jitter_gen, c_max: float,
+                              max_stride: int, max_edge_size: int,
+                              batch: bool):
+    """One cohort round: batched ratings, consensus matching on the
+    members' summed ratings (the member's own rating for a cohort of
+    one), and one contraction carrying every weight row."""
+    lo, hi, rating_pop = _pair_ratings_population(
+        hga, parts, ew_pop, max_stride=max_stride,
+        max_edge_size=max_edge_size, batch=batch)
+    jitter = draw_jitter(jitter_gen, lo.shape[0], lo.device)
+    cid, n_new = _mutual_match_dev(hga, lo, hi, _member_sum(rating_pop),
+                                   jitter, c_max)
+    coarse, p_new, ew_new = contract_arrays(hga, cid, n_new, ew_pop=ew_pop)
+    # block of each cluster = block of any member (the restriction made
+    # every merged pair agree in every member)
+    new_parts = torch.zeros_like(parts).scatter_reduce(
+        1, cid[None].expand(parts.shape[0], -1), parts, "amax")
+    return coarse, cid, new_parts, ew_new, p_new
+
+
+@dataclasses.dataclass
+class PopulationLevel:
+    """One shared-structure cohort level: the shared structure (``hga``,
+    ``cluster_id``) plus the per-member leaves (``ew_pop`` edge weights,
+    ``parts`` projected partitions)."""
+    hga: HypergraphArrays
+    cluster_id: Optional[torch.Tensor]
+    ew_pop: torch.Tensor            # [alpha, m_pad]
+    parts: torch.Tensor             # [alpha, n_pad]
+    n: int
+    m: int
+    p: int
+
+
+@dataclasses.dataclass
+class PopulationHierarchy:
+    """Shared-structure multilevel hierarchy of the mutation cohort: one
+    structure per level, per-member edge weights and partitions stacked
+    on a leading alpha axis."""
+    levels: List[PopulationLevel]
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.levels)
+
+    def sizes(self) -> List[int]:
+        return [lv.n for lv in self.levels]
+
+    def level_n(self, li: int) -> int:
+        return self.levels[li].n
+
+    def level_arrays(self, li: int) -> HypergraphArrays:
+        return self.levels[li].hga
+
+    def level_ew(self, li: int) -> torch.Tensor:
+        return self.levels[li].ew_pop
+
+    def level_parts(self, li: int) -> torch.Tensor:
+        return self.levels[li].parts
+
+    def project_pop(self, parts, li: int) -> torch.Tensor:
+        """Project the cohort at level ``li`` onto level ``li - 1``."""
+        lv = self.levels[li]
+        parts = torch.as_tensor(parts, device=lv.hga.device).to(torch.int32)
+        return _pad_cols(parts, lv.hga.n_pad)[:, lv.cluster_id.long()]
+
+
+def population_coarsen(hg: Hypergraph, parts, ew_pop, k: int, *,
+                       contraction_limit_factor: int = 64,
+                       max_rounds: int = 64, min_shrink: float = 0.02,
+                       seed: int = 0, max_cluster_frac: float = 1.0,
+                       batch: bool = True,
+                       model_shard: Optional[str] = None,
+                       device: str | torch.device = "cuda"
+                       ) -> PopulationHierarchy:
+    """Build one partition-aware hierarchy for the whole mutation cohort
+    on ``device``.
+
+    ``parts`` [alpha, n] warm starts and ``ew_pop`` [alpha, m] per-member
+    reweighted edge weights, both over ``hg``'s structure.  The schedule
+    is the shared ``coarsen.round_schedule`` (it reads only vertex
+    weights and structure, which the members share); the tie-jitter
+    comes from one ``torch.Generator`` seeded with ``seed``, as in
+    ``device_coarsen``.  ``batch=False`` aggregates the ratings member by
+    member; the hierarchy is the same either way.
+    """
+    if model_shard not in (None, "off", "auto"):
+        raise NotImplementedError(
+            f"model_shard={model_shard!r} belongs to a later slice of the "
+            "port (multi-device paths)")
+    dev = resolve_device(device)
+    sched = round_schedule(hg, k,
+                           contraction_limit_factor=contraction_limit_factor,
+                           max_rounds=max_rounds, min_shrink=min_shrink,
+                           max_cluster_frac=max_cluster_frac)
+    hga = hg.arrays(device=dev)
+    alpha = len(parts)
+    pp = np.zeros((alpha, hga.n_pad), np.int32)
+    pp[:, : hg.n] = np.asarray(parts, np.int32)[:, : hg.n]
+    ww = np.zeros((alpha, hga.m_pad), np.float32)
+    ww[:, : hg.m] = np.asarray(ew_pop, np.float32)[:, : hg.m]
+    parts_t = torch.from_numpy(pp).to(dev)
+    ew_t = torch.from_numpy(ww).to(dev)
+    levels = [PopulationLevel(hga=hga, cluster_id=None, ew_pop=ew_t,
+                              parts=parts_t, n=hg.n, m=hg.m,
+                              p=hg.num_pins)]
+    gen = torch.Generator().manual_seed(seed)
+    c_max = float(np.float32(sched.c_max))
+    cur, cur_parts, cur_ew, n_cur = hga, parts_t, ew_t, hg.n
+    for _ in range(sched.max_rounds):
+        if sched.done(n_cur):
+            break
+        coarse, cid, new_parts, new_ew, p_new = _coarsen_round_population(
+            cur, cur_parts, cur_ew, gen, c_max, max_stride=MAX_STRIDE,
+            max_edge_size=MAX_EDGE_SIZE, batch=batch)
+        n_new = coarse.n
+        if sched.stalled(n_cur, n_new):
+            break
+        m_new = coarse.m
+        n_pad2 = _round_pow2(n_new + 1)
+        m_pad2 = _round_pow2(m_new + 1)
+        p_pad2 = _round_pow2(p_new + 1)
+        if (n_pad2, m_pad2, p_pad2) != (coarse.n_pad, coarse.m_pad,
+                                        coarse.p_pad):
+            coarse, cid, _ = _rebucket(coarse, cid, None, n_pad2, m_pad2,
+                                       p_pad2)
+            new_parts = new_parts[:, :n_pad2].contiguous()
+            new_ew = new_ew[:, :m_pad2].contiguous()
+        coarse = _attach_incident(coarse, m_new, p_new)
+        levels.append(PopulationLevel(hga=coarse,
+                                      cluster_id=cid.to(torch.int32),
+                                      ew_pop=new_ew, parts=new_parts,
+                                      n=n_new, m=m_new, p=p_new))
+        cur, cur_parts, cur_ew, n_cur = coarse, new_parts, new_ew, n_new
+    return PopulationHierarchy(levels=levels)

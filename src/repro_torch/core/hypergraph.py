@@ -173,6 +173,24 @@ class Hypergraph:
             edge_weights=self.edge_weights,
         )
 
+    def with_edge_weights(self, new_weights: np.ndarray,
+                          new_vertex_weights: np.ndarray | None = None
+                          ) -> "Hypergraph":
+        """Reweighted copy sharing all host structure: pins, offsets, the
+        dual incidence and the dense-layout cache."""
+        hg = Hypergraph(
+            n=self.n, m=self.m, pins=self.pins,
+            edge_offsets=self.edge_offsets,
+            vertex_weights=(self.vertex_weights
+                            if new_vertex_weights is None
+                            else np.asarray(new_vertex_weights,
+                                            np.float32)),
+            edge_weights=np.asarray(new_weights, np.float32),
+        )
+        hg._incident, hg._vertex_offsets = self._incident, self._vertex_offsets
+        hg._layout_cache = self._layout_cache
+        return hg
+
     def arrays(self, pad_pins: Optional[int] = None,
                pad_edges: Optional[int] = None,
                pad_vertices: Optional[int] = None,
@@ -439,7 +457,8 @@ def _compact_ghosts(live: torch.Tensor, arrays, fills):
             for a, fill in zip(arrays, fills)]
 
 
-def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new):
+def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new,
+                    ew_pop: Optional[torch.Tensor] = None):
     """Contract a padded device hypergraph by cluster assignment ``cid``.
 
     ``cid`` maps every fine vertex slot [n_pad] onto dense coarse ids
@@ -453,6 +472,16 @@ def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new):
 
     Returns ``(coarse_arrays, p_new)``; ``coarse.n``/``coarse.m`` and
     ``p_new`` are host ints, read back together in one transfer.
+
+    ``ew_pop`` ([alpha, m_pad], optional) stacks per-member edge weights
+    over the shared structure (the mutation cohort, DESIGN.md §10).  The
+    merge/drop/renumber decisions are structural, so every row goes
+    through the same edge map as the structural weights, and a third
+    value ``ew_pop_new`` [alpha, m_pad] is returned.  The rows are
+    reweighted (non-integer) weights, so their merged sums hold to the
+    reference within rounding, not bit for bit; on the card
+    ``index_add_`` adds with atomics, so their last bits may also vary
+    between runs.
     """
     n_pad, m_pad, p_pad = hga.n_pad, hga.m_pad, hga.p_pad
     dev = hga.device
@@ -549,7 +578,18 @@ def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new):
         edge_sizes=new_es.to(torch.int32),
         n=n_h, m=m_h, incident=None,
     )
-    return coarse, p_h
+    if ew_pop is None:
+        return coarse, p_h
+    # per-member rows ride the structural edge map: same parallel-edge
+    # groups, survivors and dense renumbering
+    alpha = ew_pop.shape[0]
+    gw_r = torch.zeros((alpha, m_pad), dtype=torch.float32,
+                       device=dev).index_add_(
+        1, grp, torch.where(alive_s[None], ew_pop[:, eo], 0.0))
+    merged_r = torch.where(keep_edge[None], gw_r[:, grp_of], 0.0)
+    ew_new = torch.zeros((alpha, m_pad), dtype=torch.float32,
+                         device=dev).index_add_(1, tgt, merged_r)
+    return coarse, p_h, ew_new
 
 
 # --------------------------------------------------------------------------

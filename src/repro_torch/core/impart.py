@@ -1,11 +1,12 @@
 """IMPart driver, static schedule on one device (port of
-``repro.core.impart.impart_partition``).
+``repro.core.impart.impart_partition``; paper Fig. 3).
 
 One coarsening hierarchy; alpha solutions uncoarsen together, every
-member refined at every level (LP, plus FM on coarse levels); best
-member wins.  This slice of the port runs the driver with the memetic
-operators off: ``recombination_enabled=False``,
-``mutation_enabled=False`` and ``final_vcycles=0``.  Those options, the
+member refined at every level (LP, plus FM on coarse levels).  At the
+beta geometric thresholds (Sec. 3.1.1) a ring-recombination round runs,
+followed by mutation; the best member then goes through
+``final_vcycles`` V-cycles.  Recombination and mutation materialise the
+level on the host once (``level_host``) for their overlay work.  The
 bandit schedule and the multi-device paths keep their config fields and
 raise ``NotImplementedError`` naming the slice that brings them.
 """
@@ -22,12 +23,14 @@ import torch
 from repro_torch.env import resolve_device
 from .budget import exhausted, level_exhausted
 from .hypergraph import Hypergraph
+from .coarsen import recombination_thresholds
 from .dcoarsen import build_hierarchy
 from .initial_partition import initial_partition_population
 from . import refine as refine_mod
+from .mutate import MUTATE_PATHS, mutate_population
+from .recombine import ring_recombination
 from .refine import _later_slice
-
-MUTATE_PATHS = ("batch", "loop")
+from .vcycle import vcycle
 POP_SHARD_PATHS = ("mesh", "chunk", "off")
 MODEL_SHARD_PATHS = ("mesh", "off")
 SCHED_PATHS = ("bandit", "static")
@@ -103,13 +106,6 @@ class ImpartResult:
 
 def _check_slice(cfg: ImpartConfig) -> None:
     """Refuse every option this slice of the port does not run."""
-    if cfg.recombination_enabled:
-        _later_slice("recombination_enabled=True",
-                     "recombination and the V-cycle")
-    if cfg.mutation_enabled:
-        _later_slice("mutation_enabled=True", "mutation")
-    if cfg.final_vcycles > 0:
-        _later_slice("final_vcycles > 0", "recombination and the V-cycle")
     sched = cfg.sched or os.environ.get("REPRO_SCHED", "").strip().lower()
     if sched == "bandit" or cfg.sched_replay is not None:
         _later_slice("the bandit operator schedule", "operator scheduler")
@@ -125,7 +121,7 @@ def _check_slice(cfg: ImpartConfig) -> None:
 def impart_partition(hg: Hypergraph, cfg: ImpartConfig,
                      device: str | torch.device = "cuda") -> ImpartResult:
     """Partition ``hg`` into ``cfg.k`` blocks on ``device`` (static
-    schedule, memetic operators off)."""
+    schedule)."""
     _check_slice(cfg)
     from repro_torch.kernels import ops
     dev = resolve_device(device)
@@ -136,6 +132,7 @@ def impart_partition(hg: Hypergraph, cfg: ImpartConfig,
                            device=dev)
     num_levels = hier.num_levels
     n_c = hier.level_n(num_levels - 1)
+    thresholds = recombination_thresholds(hg.n, n_c, cfg.beta)
 
     # alpha diverse initial solutions (distinct seeds), the whole
     # portfolio x population stack refined in one batch
@@ -146,6 +143,7 @@ def impart_partition(hg: Hypergraph, cfg: ImpartConfig,
 
     trace: List[tuple] = [(n_c, list(cuts), "init")]
     gain_paths: List[str] = []
+    next_thr = 0
     steps_done = 0
     degraded = False
 
@@ -159,6 +157,27 @@ def impart_partition(hg: Hypergraph, cfg: ImpartConfig,
             hga, parts, k, eps, fm_node_limit=cfg.fm_node_limit,
             max_iters=cfg.lp_iters, device=hga.device)
         trace.append((n_li, list(cuts), "refine"))
+
+        # the geometric-threshold recombination rounds (host overlay
+        # work on the level, materialised once through level_host)
+        while (next_thr < cfg.beta and n_li >= thresholds[next_thr] - 1e-9
+               and cfg.recombination_enabled):
+            lv_host = hier.level_host(li)
+            parts, cuts = ring_recombination(
+                lv_host, torch.as_tensor(parts).cpu().numpy()[:, : n_li],
+                cuts, k, eps, seed=cfg.seed * 31 + next_thr,
+                shard=cfg.pop_shard, model_shard=cfg.model_shard,
+                device=dev)
+            trace.append((n_li, list(cuts), f"recombine@{next_thr}"))
+            if cfg.mutation_enabled:
+                parts, cuts = mutate_population(
+                    lv_host, parts, cuts, k, eps,
+                    threshold=cfg.similarity_threshold,
+                    mu=cfg.mutation_mu, seed=cfg.seed * 17 + next_thr,
+                    path=cfg.mutation_path, shard=cfg.pop_shard,
+                    model_shard=cfg.model_shard, device=dev)
+                trace.append((n_li, list(cuts), f"mutate@{next_thr}"))
+            next_thr += 1
         steps_done += 1
         if (exhausted(t0, cfg.time_budget_s)
                 or (li > 0 and level_exhausted(steps_done,
@@ -176,6 +195,14 @@ def impart_partition(hg: Hypergraph, cfg: ImpartConfig,
     parts = torch.as_tensor(parts).cpu().numpy()
     best = int(np.argmin(cuts))
     part, cut = parts[best][: hg.n], float(cuts[best])
+    if not degraded:
+        for v in range(cfg.final_vcycles):
+            if exhausted(t0, cfg.time_budget_s):
+                break
+            part, cut = vcycle(hg, part, k, eps, seed=cfg.seed * 997 + v,
+                               shard=cfg.pop_shard,
+                               model_shard=cfg.model_shard, device=dev)
+            trace.append((hg.n, [cut], f"final-vcycle@{v}"))
     return ImpartResult(
         part=np.asarray(part, np.int32), cut=float(cut),
         population_cuts=[float(c) for c in cuts], trace=trace,

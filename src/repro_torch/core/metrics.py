@@ -11,13 +11,26 @@ overflows once ``m_pad * k`` or ``n_pad * k`` passes 2**31.
 Edge and vertex weights are integer-valued f32 on every instance the
 engines ingest, so Phi, lambda, cuts, block weights and gains are exact
 sums in any order: the population functions here are bit-equal to the
-reference's vmapped ones, whatever path assembles the gains.
+reference's vmapped ones, whatever path assembles the gains.  The one
+exception is mutation's per-member reweighting (``ew_pop``, DESIGN.md
+§10): its weights ``w_e * (1 + mu * C(e))`` are not integers, so
+weighted cuts and gains hold to the reference within rounding.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from .hypergraph import HypergraphArrays
+
+
+def member_arrays(hga: HypergraphArrays,
+                  ew_row: torch.Tensor) -> HypergraphArrays:
+    """One mutation-cohort member's view of a shared-structure
+    hypergraph: the structure shared, the edge-weight leaf swapped for
+    the member's row."""
+    return dataclasses.replace(hga, edge_weights=ew_row)
 
 
 def block_weights(hga: HypergraphArrays, part: torch.Tensor,
@@ -61,6 +74,13 @@ def connectivity(hga: HypergraphArrays, part: torch.Tensor,
     return (pins_in_block(hga, part, k) > 0).sum(-1).to(torch.int32)
 
 
+def connectivity_population(hga: HypergraphArrays, parts: torch.Tensor,
+                            k: int) -> torch.Tensor:
+    """lambda [alpha, m_pad] int32 of every member."""
+    return (pins_in_block_population(hga, parts, k) > 0).sum(-1).to(
+        torch.int32)
+
+
 def cutsize(hga: HypergraphArrays, part: torch.Tensor, k: int) -> torch.Tensor:
     """Sum of weights of edges spanning >= 2 blocks (the paper's
     objective), f32 scalar."""
@@ -74,31 +94,74 @@ def cutsize_population(hga: HypergraphArrays, parts: torch.Tensor,
     return torch.where(lam > 1, hga.edge_weights[None], 0.0).sum(-1)
 
 
+def cutsize_population_weighted(hga: HypergraphArrays, parts: torch.Tensor,
+                                ew_pop: torch.Tensor, k: int) -> torch.Tensor:
+    """[alpha] f32 cuts, each member measured with its own edge-weight
+    row ``ew_pop[alpha, m_pad]`` over the shared structure (the mutation
+    cohort's objective)."""
+    lam = connectivity_population(hga, parts, k)
+    return torch.where(lam > 1, ew_pop, 0.0).sum(-1)
+
+
+def km1(hga: HypergraphArrays, part: torch.Tensor, k: int) -> torch.Tensor:
+    """(lambda - 1) connectivity objective (KaHyPar's other metric)."""
+    lam = connectivity(hga, part, k)
+    return (torch.clamp(lam - 1, min=0).to(torch.float32)
+            * hga.edge_weights).sum()
+
+
+def edge_distance_matrix(hga: HypergraphArrays, parts: torch.Tensor,
+                         k: int) -> torch.Tensor:
+    """All-pairs label-invariant distance d_e (paper Eq. 2) between
+    population members: the L1 distance of their connectivity vectors
+    over the real edges.  Returns [alpha, alpha] int32."""
+    lam = connectivity_population(hga, parts, k)[:, : hga.m].to(torch.int64)
+    return (lam[:, None, :] - lam[None, :, :]).abs().sum(-1).to(torch.int32)
+
+
 def balance_cap(total_weight: torch.Tensor, k: int,
                 eps: float) -> torch.Tensor:
     """The paper's constraint: W_i <= (1+eps) * ceil(W/k) (f32)."""
     return (1.0 + eps) * torch.ceil(total_weight / k)
 
 
+def is_balanced(hga: HypergraphArrays, part: torch.Tensor, k: int,
+                eps: float) -> torch.Tensor:
+    """True (0-d bool) when every block meets the balance cap."""
+    bw = block_weights(hga, part, k)
+    return (bw <= balance_cap(hga.total_weight, k, eps) + 1e-4).all()
+
+
+def imbalance(hga: HypergraphArrays, part: torch.Tensor,
+              k: int) -> torch.Tensor:
+    """Heaviest block over the average block weight, minus one (f32)."""
+    bw = block_weights(hga, part, k)
+    avg = hga.total_weight / k
+    return bw.max() / torch.clamp(avg, min=1e-9) - 1.0
+
+
 # --------------------------------------------------------------------------
 # FM move gains
 # --------------------------------------------------------------------------
-def _edge_gain_terms(hga: HypergraphArrays, phi: torch.Tensor):
+def _edge_gain_terms(hga: HypergraphArrays, phi: torch.Tensor,
+                     ew_pop: torch.Tensor | None = None):
     """Per-edge FM terms (stage 1 of the gain pipeline) from Phi
     [..., m_pad, k]: becomes_internal [..., m_pad, k] and was_internal
-    [..., m_pad] (f32)."""
+    [..., m_pad] (f32).  ``ew_pop`` [alpha, m_pad] replaces the shared
+    edge weights by each member's own row."""
     sizes = hga.edge_sizes[:, None]
-    w = hga.edge_weights[:, None]
+    w = (hga.edge_weights if ew_pop is None else ew_pop)[..., None]
     becomes_internal = torch.where(phi == sizes - 1, w, 0.0)
     was_internal = torch.where((phi == sizes) & (sizes > 0), w,
                                0.0).sum(-1)
     return becomes_internal, was_internal
 
 
-def _gain_segsum(hga: HypergraphArrays, phi: torch.Tensor) -> torch.Tensor:
+def _gain_segsum(hga: HypergraphArrays, phi: torch.Tensor,
+                 ew_pop: torch.Tensor | None = None) -> torch.Tensor:
     """Per-pin gather + segment-sum assembly from Phi [alpha, m_pad, k]:
     materialises an [alpha, P, k] intermediate."""
-    becomes_internal, was_internal = _edge_gain_terms(hga, phi)
+    becomes_internal, was_internal = _edge_gain_terms(hga, phi, ew_pop)
     pe, pv = hga.pin_edge.long(), hga.pin_vertex.long()
     alpha, _, k = phi.shape
     g = torch.zeros((alpha, hga.n_pad, k), dtype=torch.float32,
@@ -109,8 +172,8 @@ def _gain_segsum(hga: HypergraphArrays, phi: torch.Tensor) -> torch.Tensor:
     return g - l[..., None]
 
 
-def _gain_compact(hga: HypergraphArrays, phi: torch.Tensor,
-                  k: int) -> torch.Tensor:
+def _gain_compact(hga: HypergraphArrays, phi: torch.Tensor, k: int,
+                  ew_pop: torch.Tensor | None = None) -> torch.Tensor:
     """Sparse assembly for large k, O(P) instead of O(P * k).
 
     ``becomes_internal`` has at most TWO nonzero columns per edge (an
@@ -122,19 +185,20 @@ def _gain_compact(hga: HypergraphArrays, phi: torch.Tensor,
     """
     alpha = phi.shape[0]
     dev = phi.device
-    w = hga.edge_weights
+    w = (hga.edge_weights[None].expand(alpha, -1) if ew_pop is None
+         else ew_pop)                                       # [a, m_pad]
     s = hga.edge_sizes[:, None]
     multi = hga.edge_sizes >= 2
     mask = (phi == s - 1) & multi[:, None]                  # <= 2 per row
     cols = torch.arange(k, device=dev)
     c1 = torch.where(mask, cols, k).amin(-1)                # [a, m_pad]
     c2 = torch.where(mask & (cols != c1[..., None]), cols, k).amin(-1)
-    was_internal = torch.where((phi == s) & multi[:, None], w[:, None],
+    was_internal = torch.where((phi == s) & multi[:, None], w[..., None],
                                0.0).sum(-1)
     pe, pv = hga.pin_edge.long(), hga.pin_vertex.long()
     rows = (torch.arange(alpha, device=dev)[:, None] * hga.n_pad
             + pv[None, :]) * (k + 1)                         # [a, P]
-    wp = w[pe].expand(alpha, -1).reshape(-1)
+    wp = w[:, pe].reshape(-1)
     g = torch.zeros(alpha * hga.n_pad * (k + 1), dtype=torch.float32,
                     device=dev)
     g.index_add_(0, (rows + c1[:, pe]).reshape(-1), wp)
@@ -156,7 +220,8 @@ def _resolve_gain_path(hga: HypergraphArrays, k: int, assemble: str) -> str:
 
 def _gain_matrix_population_impl(hga: HypergraphArrays, parts: torch.Tensor,
                                  k: int, assemble: str = "auto",
-                                 phi: torch.Tensor | None = None
+                                 phi: torch.Tensor | None = None,
+                                 ew_pop: torch.Tensor | None = None
                                  ) -> torch.Tensor:
     """Population gain matrices [alpha, n_pad, k]:
 
@@ -168,17 +233,21 @@ def _gain_matrix_population_impl(hga: HypergraphArrays, parts: torch.Tensor,
     "stream") hand the per-edge tables of all members to one kernel
     launch; without a dense incidence layout they fall back to segsum.
     ``phi`` may be passed when the caller maintains it (FM).
+    ``ew_pop`` [alpha, m_pad] gives every member its own edge-weight row
+    over the shared structure (the mutation cohort): the weights enter
+    only the per-edge tables, so the kernels get per-member tables and
+    the one shared incidence layout.
     """
     if phi is None:
         phi = pins_in_block_population(hga, parts, k)
     path = _resolve_gain_path(hga, k, assemble)
     if path == "compact":
-        g = _gain_compact(hga, phi, k)
+        g = _gain_compact(hga, phi, k, ew_pop)
     elif path == "segsum" or hga.incident is None:
-        g = _gain_segsum(hga, phi)
+        g = _gain_segsum(hga, phi, ew_pop)
     else:
         from repro_torch.kernels import ops
-        bi, wi = _edge_gain_terms(hga, phi)
+        bi, wi = _edge_gain_terms(hga, phi, ew_pop)
         g = ops.gain_assemble_batch(hga.incident, bi, wi, path)
     # moving to your own block is never a move
     return g.scatter_(2, parts.long()[..., None], 0.0)
@@ -188,7 +257,17 @@ def gain_matrix(hga: HypergraphArrays, part: torch.Tensor, k: int,
                 phi: torch.Tensor | None = None,
                 assemble: str = "auto") -> torch.Tensor:
     """Full [n_pad, k] cut-size gain matrix of one partition (see
-    ``_gain_matrix_population_impl``)."""
+    ``_gain_matrix_population_impl``).  On the kernel paths the one
+    member's tables go to the one-member kernels (``ops.gain_assemble``);
+    the other paths are the population ones with one member."""
+    path = _resolve_gain_path(hga, k, assemble)
+    if path in ("table", "stream") and hga.incident is not None:
+        from repro_torch.kernels import ops
+        if phi is None:
+            phi = pins_in_block(hga, part, k)
+        bi, wi = _edge_gain_terms(hga, phi)
+        g = ops.gain_assemble(hga.incident, bi, wi, path)
+        return g.scatter_(1, part.long()[:, None], 0.0)
     return _gain_matrix_population_impl(
-        hga, part[None], k, assemble=assemble,
+        hga, part[None], k, assemble=path,
         phi=None if phi is None else phi[None])[0]

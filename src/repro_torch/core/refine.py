@@ -15,12 +15,19 @@ trajectories: the tie-breaks are the reference's (stable argsort in
 slacks), and the integer-valued weights make every sum exact.
 
 Both tiers guarantee: the returned partition never violates the balance
-cap and never has a larger cut than the input.  Options of later slices
-(per-member edge weights, mesh sharding, bounded migration) raise
-``NotImplementedError``.
+cap and never has a larger cut than the input.  ``edge_weights_pop``
+gives every member its own edge-weight row over the shared structure
+(the mutation cohort, DESIGN.md §10).  Options of later slices (mesh
+sharding, bounded migration) raise ``NotImplementedError``.
+
+The scalar entry points (``lp_round``, ``lp_refine``, ``fm_refine``,
+``refine``) refine one partition; the baselines and recombination's
+clustered solver use them.  Their LP gains come from the one-member
+gain kernels (``metrics.gain_matrix``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import numpy as np
@@ -32,10 +39,11 @@ from . import metrics
 
 NEG = -1e30
 
-#: FM move steps between two host reads of the "any move left" flag.
-#: Once a member has no feasible move its state is frozen (the next step
-#: finds the same empty move set), so running a few extra steps before
-#: noticing changes nothing.
+#: FM move steps between two host reads of the "any move left" flag,
+#: and the steps one CUDA graph replays on the card.  Once a member has
+#: no feasible move its state is frozen (the next step finds the same
+#: empty move set), so running a few extra steps before noticing changes
+#: nothing.
 FM_FLAG_EVERY = 32
 
 
@@ -44,12 +52,8 @@ def _later_slice(what: str, slice_name: str):
         f"{what} belongs to a later slice of the port ({slice_name})")
 
 
-def _check_slice_options(edge_weight_override=None, edge_weights_pop=None,
-                         shard=None, incumbent=None, mig_budget=None,
+def _check_slice_options(shard=None, incumbent=None, mig_budget=None,
                          model_shard=None) -> None:
-    if edge_weight_override is not None or edge_weights_pop is not None:
-        _later_slice("per-member edge weights (edge_weights_pop / "
-                     "edge_weight_override)", "mutation")
     if shard not in (None, "off", "auto"):
         _later_slice(f"shard={shard!r}", "multi-device paths")
     if model_shard not in (None, "off", "auto"):
@@ -147,20 +151,36 @@ def _lp_round_from_gains(h: HypergraphArrays, parts: torch.Tensor, k: int,
                         h.vertex_weights, bw, cap, fracs, k)
 
 
+def _with_weights(hga: HypergraphArrays,
+                  edge_weight_override: torch.Tensor | None
+                  ) -> HypergraphArrays:
+    if edge_weight_override is None:
+        return hga
+    return dataclasses.replace(hga, edge_weights=edge_weight_override)
+
+
 def _lp_round_population_impl(hga: HypergraphArrays, parts: torch.Tensor,
-                              k: int, cap: torch.Tensor, fracs: torch.Tensor
-                              ) -> torch.Tensor:
+                              k: int, cap: torch.Tensor, fracs: torch.Tensor,
+                              edge_weight_override=None,
+                              edge_weights_pop=None) -> torch.Tensor:
     """One LP round for all members: the gains of the whole population
-    come from one dispatch (one kernel launch on the kernel paths)."""
-    gains = metrics._gain_matrix_population_impl(hga, parts, k)
-    return _lp_round_from_gains(hga, parts, k, cap, fracs, gains)
+    come from one dispatch (one kernel launch on the kernel paths).
+    ``edge_weights_pop`` [alpha, m_pad] gives each member its own edge
+    weights; ``edge_weight_override`` [m_pad] biases all members."""
+    h = _with_weights(hga, edge_weight_override)
+    gains = metrics._gain_matrix_population_impl(h, parts, k,
+                                                 ew_pop=edge_weights_pop)
+    return _lp_round_from_gains(h, parts, k, cap, fracs, gains)
 
 
 def _lp_attempt_population_impl(hga: HypergraphArrays, parts: torch.Tensor,
                                 cuts: torch.Tensor, fracs: torch.Tensor,
-                                attempts: int, k: int, cap: torch.Tensor):
+                                attempts: int, k: int, cap: torch.Tensor,
+                                edge_weight_override=None,
+                                edge_weights_pop=None):
     """The LP attempt loop: per member, propose a round at the current
-    acceptance fraction, measure the cut, accept on improvement,
+    acceptance fraction, measure the cut (on the true weights, or on the
+    member's own row of ``edge_weights_pop``), accept on improvement,
     otherwise quarter the fraction and retry.  Returns as soon as any
     member improved (the caller resumes the others), reading back one
     flag per attempt.  Returns ``(parts, cuts, improved, fracs, used)``.
@@ -169,8 +189,10 @@ def _lp_attempt_population_impl(hga: HypergraphArrays, parts: torch.Tensor,
                            device=parts.device)
     used = 0
     while used < attempts:
-        cands = _lp_round_population_impl(hga, parts, k, cap, fracs)
-        cs = metrics.cutsize_population(hga, cands, k)
+        cands = _lp_round_population_impl(hga, parts, k, cap, fracs,
+                                          edge_weight_override,
+                                          edge_weights_pop)
+        cs = _member_cuts(hga, cands, edge_weights_pop, k)
         take = cs < cuts - 1e-6
         parts = torch.where(take[:, None], cands, parts)
         cuts = torch.where(take, cs, cuts)
@@ -187,6 +209,62 @@ def _cap_for(hga: HypergraphArrays, k: int, eps: float) -> torch.Tensor:
     return metrics.balance_cap(hga.total_weight, k, eps)
 
 
+def _member_cuts(hga: HypergraphArrays, parts: torch.Tensor,
+                 ew_pop: torch.Tensor | None, k: int) -> torch.Tensor:
+    """[alpha] f32 cuts, on each member's own row when ``ew_pop`` is
+    given."""
+    if ew_pop is None:
+        return metrics.cutsize_population(hga, parts, k)
+    return metrics.cutsize_population_weighted(hga, parts, ew_pop, k)
+
+
+def lp_round(hga: HypergraphArrays, part: torch.Tensor, k: int,
+             cap: torch.Tensor, frac: float,
+             edge_weight_override=None) -> torch.Tensor:
+    """One parallel move round of one partition [n_pad]: its gains come
+    from the one-member gain dispatch (``metrics.gain_matrix``), the
+    proposal and acceptance are the population ones with one member.
+    ``edge_weight_override`` biases the gains only."""
+    h = _with_weights(hga, edge_weight_override)
+    gains = metrics.gain_matrix(h, part, k)
+    fracs = torch.full((1,), frac, dtype=torch.float32, device=part.device)
+    return _lp_round_from_gains(h, part[None], k, cap, fracs,
+                                gains[None])[0]
+
+
+def lp_refine(hga: HypergraphArrays, part, k: int, eps: float,
+              max_iters: int = 24, patience: int = 3,
+              edge_weight_override=None) -> Tuple[np.ndarray, float]:
+    """Host loop around ``lp_round`` with regression-safe acceptance:
+    up to 5 attempts a round, the acceptance fraction quartered after
+    each that does not lower the (true) cut.  Returns (part [n_pad]
+    numpy, cut)."""
+    dev = hga.device
+    cap = _cap_for(hga, k, eps)
+    part = pad_part(part, hga.n_pad, dev)
+    ewo = (None if edge_weight_override is None else torch.as_tensor(
+        edge_weight_override, dtype=torch.float32, device=dev))
+    cut = float(metrics.cutsize(hga, part, k))
+    stall = 0
+    for _ in range(max_iters):
+        frac = 1.0
+        improved = False
+        for _attempt in range(5):
+            cand = lp_round(hga, part, k, cap, frac, ewo)
+            c = float(metrics.cutsize(hga, cand, k))
+            if c < cut - 1e-6:
+                part, cut, improved = cand, c, True
+                break
+            frac *= 0.25
+        if not improved:
+            stall += 1
+            if stall >= patience:
+                break
+        else:
+            stall = 0
+    return part.cpu().numpy(), cut
+
+
 def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
                          max_iters: int = 24, patience: int = 3,
                          edge_weight_override=None, edge_weights_pop=None,
@@ -197,15 +275,20 @@ def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
     """Batched LP refinement: the host tracks stall counters per member;
     members that stopped improving drop out of the batch, so each member
     follows exactly the trajectory the reference gives it.
-    Returns (parts [alpha, n_pad] int32 on hga's device, cuts [alpha]
-    float64)."""
-    _check_slice_options(edge_weight_override, edge_weights_pop, shard,
-                         incumbent, mig_budget, model_shard)
+    ``edge_weights_pop`` [alpha, m_pad]: each member's gains and
+    acceptance cuts use its own row, as if it refined its own reweighted
+    hypergraph.  Returns (parts [alpha, n_pad] int32 on hga's device,
+    cuts [alpha] float64)."""
+    _check_slice_options(shard, incumbent, mig_budget, model_shard)
     dev = hga.device
     cap = _cap_for(hga, k, eps)
     parts = pad_parts(parts, hga.n_pad, dev)
     alpha = parts.shape[0]
-    cuts = metrics.cutsize_population(hga, parts, k).cpu().numpy().astype(
+    ewo = (None if edge_weight_override is None else torch.as_tensor(
+        edge_weight_override, dtype=torch.float32, device=dev))
+    ew_pop = (None if edge_weights_pop is None else torch.as_tensor(
+        edge_weights_pop, dtype=torch.float32, device=dev))
+    cuts = _member_cuts(hga, parts, ew_pop, k).cpu().numpy().astype(
         np.float64)
 
     stall = np.zeros(alpha, np.int32)
@@ -221,13 +304,16 @@ def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
         while remaining > 0 and len(idx):
             idx_t = torch.as_tensor(idx, device=dev)
             sub = parts[idx_t] if len(idx) < alpha else parts
+            sub_ew = None
+            if ew_pop is not None:
+                sub_ew = ew_pop[idx_t] if len(idx) < alpha else ew_pop
             new_sub, new_cuts, improved, new_fracs, used = \
                 _lp_attempt_population_impl(
                     hga, sub,
                     torch.as_tensor(cuts[idx], dtype=torch.float32,
                                     device=dev),
                     torch.as_tensor(fracs[idx], device=dev),
-                    remaining, k, cap)
+                    remaining, k, cap, ewo, sub_ew)
             improved = improved.cpu().numpy()
             if len(idx) < alpha:
                 parts[idx_t] = new_sub
@@ -249,41 +335,44 @@ def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
 # sequential FM for coarse levels
 # --------------------------------------------------------------------------
 def _fm_pass_population_impl(hga: HypergraphArrays, parts: torch.Tensor,
-                             k: int, cap: torch.Tensor, steps: int
+                             k: int, cap: torch.Tensor, steps: int,
+                             edge_weights_pop: torch.Tensor | None = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One FM pass for every member: up to ``steps`` single moves
     (negative gains allowed), returning each member's best prefix
-    (partition + its cut).
+    (partition + its cut).  With ``edge_weights_pop`` every member's
+    gains and cuts use its own edge-weight row.
 
     A member stops once no feasible move exists (every vertex locked or
     infeasible); from then on its state is frozen, so the loop runs
     until every member stopped or ``steps`` is reached, and reads the
     flag only every ``FM_FLAG_EVERY`` steps — the result is the same as
-    checking it after every move.
+    checking it after every move.  On the card those steps are replayed
+    as one CUDA graph (``_run_fm_steps``).
     """
     alpha, n_pad = parts.shape
     dev = parts.device
     rows = torch.arange(alpha, device=dev)
+    arange_n = torch.arange(n_pad, device=dev)
     vw = hga.vertex_weights
     pv, pe = hga.pin_vertex.long(), hga.pin_edge.long()
-    valid = (torch.arange(n_pad, device=dev) < hga.n) & (vw > 0)
+    valid = (arange_n < hga.n) & (vw > 0)
     part = parts.clone()
     phi = metrics.pins_in_block_population(hga, part, k)
     bw = metrics.block_weights_population(hga, part, k)
-    cur_cut = metrics.cutsize_population(hga, part, k)
-    best_cut = cur_cut.clone()
-    best_part = part.clone()
+    cur_cut = _member_cuts(hga, part, edge_weights_pop, k)
     locked = torch.zeros((alpha, n_pad), dtype=torch.bool, device=dev)
     blocks = torch.arange(k, device=dev)
-    # FM pins the segsum path: it only runs on coarse levels, whose small
-    # pin counts make the [alpha, P, k] segment-sum cheaper per move
-    # step than the compact path's fixed extract/scatter overhead
     feasible_slack = cap + 1e-6
-    t = 0
-    while t < steps:
-        gains = metrics._gain_matrix_population_impl(hga, part, k,
-                                                     assemble="segsum",
-                                                     phi=phi)
+
+    def step(state):
+        part, phi, bw, locked, cur_cut, best_cut, best_part, _ = state
+        # FM pins the segsum path: it only runs on coarse levels, whose
+        # small pin counts make the [alpha, P, k] segment-sum cheaper per
+        # move step than the compact path's fixed extract/scatter overhead
+        gains = metrics._gain_matrix_population_impl(
+            hga, part, k, assemble="segsum", phi=phi,
+            ew_pop=edge_weights_pop)
         own = part.long()[..., None] == blocks
         feasible = (bw[:, None, :] + vw[None, :, None]) <= feasible_slack
         score = torch.where(own | ~feasible, NEG, gains)
@@ -301,21 +390,77 @@ def _fm_pass_population_impl(hga: HypergraphArrays, parts: torch.Tensor,
         delta = ((blocks == j[:, None]).to(torch.int32)
                  - (blocks == b[:, None]).to(torch.int32))      # [a, k]
         dm = do[:, None]
+        moved = dm & (arange_n[None] == v[:, None])              # [a, n]
         phi = torch.where(dm[..., None], phi + d[..., None] * delta[:, None],
                           phi)
         bw = torch.where(dm, bw + vw[v][:, None] * delta, bw)
-        part = torch.where(
-            dm & (torch.arange(n_pad, device=dev)[None] == v[:, None]),
-            j.to(torch.int32)[:, None], part)
-        locked[rows, v] = locked[rows, v] | do
+        part = torch.where(moved, j.to(torch.int32)[:, None], part)
+        locked = locked | moved
         cur_cut = torch.where(do, cur_cut - g, cur_cut)
         better = do & (cur_cut < best_cut - 1e-9)
         best_cut = torch.where(better, cur_cut, best_cut)
         best_part = torch.where(better[:, None], part, best_part)
-        t += 1
-        if t % FM_FLAG_EVERY == 0 and not bool(do.any()):
+        return part, phi, bw, locked, cur_cut, best_cut, best_part, do
+
+    state = (part, phi, bw, locked, cur_cut, cur_cut.clone(), part.clone(),
+             torch.ones(alpha, dtype=torch.bool, device=dev))
+    state = _run_fm_steps(step, state, steps)
+    return state[6], state[5]
+
+
+def _run_fm_steps(step, state: tuple, steps: int) -> tuple:
+    """Run ``steps`` FM move steps from ``state`` (its last entry is the
+    per-member "moved" flag), stopping at the first multiple of
+    ``FM_FLAG_EVERY`` steps after which no member moved.
+
+    On CPU tensors every step is dispatched eagerly.  On the card a move
+    step is some 70 small kernels, and dispatching them one by one from
+    the host took about 1.4 ms a step; so ``FM_FLAG_EVERY`` steps are
+    captured once per pass as one CUDA graph over the state tensors,
+    which the graph updates in place, and replayed.  The graph runs the
+    same kernels in the same order, so the result is the eager one."""
+    t = 0
+    graph = None
+    while t < steps:
+        n = min(FM_FLAG_EVERY, steps - t)
+        if state[0].is_cuda and n == FM_FLAG_EVERY:
+            if graph is None:
+                graph = _capture_fm_steps(step, state, n)
+            graph.replay()
+        else:
+            for _ in range(n):
+                state = step(state)
+        t += n
+        if t % FM_FLAG_EVERY == 0 and not bool(state[-1].any()):
             break
-    return best_part, best_cut
+    return state
+
+
+def _capture_fm_steps(step, state: tuple, n: int):
+    """A CUDA graph of ``n`` consecutive ``step`` calls that reads the
+    tensors of ``state`` and writes the result back into them."""
+    dev = state[0].device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    # capture_begin/end rather than ``torch.cuda.graph``, whose entry
+    # empties the allocator's cache: once per pass, that would hand every
+    # later allocation back to cudaMalloc
+    with torch.cuda.stream(side):
+        # load every kernel once outside the capture, on a scratch state
+        step(tuple(x.clone() for x in state))
+        side.synchronize()
+        graph.capture_begin()
+        try:
+            out = state
+            for _ in range(n):
+                out = step(out)
+            for dst, src in zip(state, out):
+                dst.copy_(src)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    return graph
 
 
 def _fm_pass_impl(hga: HypergraphArrays, part: torch.Tensor, k: int,
@@ -328,6 +473,25 @@ def _fm_pass_impl(hga: HypergraphArrays, part: torch.Tensor, k: int,
     return best_part[0], best_cut[0]
 
 
+def fm_refine(hga: HypergraphArrays, part, k: int, eps: float,
+              max_passes: int = 8, step_budget: int | None = None
+              ) -> Tuple[np.ndarray, float]:
+    """Repeated FM passes of one partition until no pass improves the
+    cut.  Returns (part [n_pad] numpy, cut)."""
+    cap = _cap_for(hga, k, eps)
+    part = pad_part(part, hga.n_pad, hga.device)
+    cut = float(metrics.cutsize(hga, part, k))
+    steps = step_budget or int(min(hga.n_pad, 1024))
+    for _ in range(max_passes):
+        cand, c = _fm_pass_impl(hga, part, k, cap, steps)
+        c = float(c)
+        if c < cut - 1e-6:
+            part, cut = cand, c
+        else:
+            break
+    return part.cpu().numpy(), cut
+
+
 def fm_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
                          max_passes: int = 8,
                          step_budget: int | None = None,
@@ -338,13 +502,14 @@ def fm_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
     """Batched FM with per-member pass acceptance: a member stops
     improving exactly when the scalar loop would have broken.
     Returns (parts [alpha, n_pad], cuts [alpha] float64)."""
-    _check_slice_options(None, edge_weights_pop, shard, incumbent,
-                         mig_budget, model_shard)
+    _check_slice_options(shard, incumbent, mig_budget, model_shard)
     dev = hga.device
     cap = _cap_for(hga, k, eps)
     parts = pad_parts(parts, hga.n_pad, dev)
     alpha = parts.shape[0]
-    cuts = metrics.cutsize_population(hga, parts, k).cpu().numpy().astype(
+    ew_pop = (None if edge_weights_pop is None else torch.as_tensor(
+        edge_weights_pop, dtype=torch.float32, device=dev))
+    cuts = _member_cuts(hga, parts, ew_pop, k).cpu().numpy().astype(
         np.float64)
     steps = step_budget or int(min(hga.n_pad, 1024))
     done = np.zeros(alpha, bool)
@@ -353,8 +518,9 @@ def fm_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
         if len(idx) == 0:
             break
         idx_t = torch.as_tensor(idx, device=dev)
-        cands, cs = _fm_pass_population_impl(hga, parts[idx_t], k, cap,
-                                             steps)
+        cands, cs = _fm_pass_population_impl(
+            hga, parts[idx_t], k, cap, steps,
+            None if ew_pop is None else ew_pop[idx_t])
         cs = cs.cpu().numpy().astype(np.float64)
         take = cs < cuts[idx] - 1e-6
         if take.any():
@@ -389,9 +555,22 @@ def refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
                                        mig_budget=mig_budget,
                                        model_shard=model_shard, **kw)
     if int(hga.n) <= fm_node_limit:
-        parts, cuts = fm_refine_population(hga, parts, k, eps, shard=shard,
+        parts, cuts = fm_refine_population(hga, parts, k, eps,
+                                           edge_weights_pop=edge_weights_pop,
+                                           shard=shard,
                                            model_shard=model_shard)
     return parts, cuts
+
+
+def refine(hga: HypergraphArrays, part, k: int, eps: float,
+           fm_node_limit: int = 4096, **kw) -> Tuple[np.ndarray, float]:
+    """Two-tier refinement of one partition: scalar LP, then FM on
+    levels with at most ``fm_node_limit`` vertices.  Returns
+    (part [n_pad] numpy, cut)."""
+    part, cut = lp_refine(hga, part, k, eps, **kw)
+    if int(hga.n) <= fm_node_limit:
+        part, cut = fm_refine(hga, part, k, eps)
+    return part, cut
 
 
 def rebalance(hg_vertex_weights: np.ndarray, part: np.ndarray, k: int,

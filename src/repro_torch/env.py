@@ -37,4 +37,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         raise RuntimeError(
             f"device {str(device)!r} requested but no CUDA device is "
             "available; pass device='cpu' to run the plain PyTorch path")
+    if dev.type == "cuda" and dev.index is None:
+        # "cuda" and "cuda:0" must name one device in the per-device
+        # caches (``Hypergraph.arrays``)
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -25,18 +25,28 @@
 // piece is complete.  The summation order depends only on C and `chunk`,
 // so reruns are bit-identical, and a long run (the ghost pairs, about half
 // of C) is split over many threads instead of being walked by one.
+//
+// The batched entry (replaces rating.py::rating_scatter_batch_pallas, the
+// mutation cohort's per-member ratings) sums alpha rows vals[alpha, C] over
+// one shared segs[C] into out[alpha, S].  It adds a member axis to the grid
+// (blockIdx.y) and gives every member its own level scratch, so each row is
+// reduced by the same chunk/level program as the scalar entry: row a of
+// the batch is bit-equal to the scalar entry on vals[a].  The ids a level
+// emits depend on segs alone, so every member writes the same id pieces;
+// sharing them would save a little scratch traffic, and is not done.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
 
 namespace {
 
-__global__ void segsum_level_kernel(const int32_t* __restrict__ segs,
-                                    const float* __restrict__ vals, int c,
-                                    int chunk, float* __restrict__ out, int s,
-                                    int32_t* __restrict__ seg_next,
-                                    float* __restrict__ val_next) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+// One level of the segmented reduction over candidates [0, c) of one row:
+// thread t owns chunk t.  `out` is the row's output, seg_next/val_next the
+// row's scratch for the next level.
+__device__ __forceinline__ void segsum_level(
+    const int32_t* __restrict__ segs, const float* __restrict__ vals, int c,
+    int chunk, float* __restrict__ out, int s, int32_t* __restrict__ seg_next,
+    float* __restrict__ val_next, int t) {
   const int nchunks = (c + chunk - 1) / chunk;
   if (t >= nchunks) return;
   const int lo = t * chunk;
@@ -83,6 +93,30 @@ __global__ void segsum_level_kernel(const int32_t* __restrict__ segs,
   val_next[2 * t + 1] = e1v;
 }
 
+__global__ void segsum_level_kernel(const int32_t* __restrict__ segs,
+                                    const float* __restrict__ vals, int c,
+                                    int chunk, float* __restrict__ out, int s,
+                                    int32_t* __restrict__ seg_next,
+                                    float* __restrict__ val_next) {
+  segsum_level(segs, vals, c, chunk, out, s, seg_next, val_next,
+               blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+// Member blockIdx.y of a batch: its values, output and scratch rows start
+// at a multiple of their strides; `seg_stride` is 0 for the shared input
+// ids of the first level and the scratch stride after it.
+__global__ void segsum_level_batch_kernel(
+    const int32_t* __restrict__ segs, long long seg_stride,
+    const float* __restrict__ vals, long long val_stride, int c, int chunk,
+    float* __restrict__ out, int s, int32_t* __restrict__ seg_next,
+    float* __restrict__ val_next, long long next_stride) {
+  const long long a = blockIdx.y;
+  segsum_level(segs + a * seg_stride, vals + a * val_stride, c, chunk,
+               out + a * s, s, seg_next + a * next_stride,
+               val_next + a * next_stride,
+               blockIdx.x * blockDim.x + threadIdx.x);
+}
+
 }  // namespace
 
 // Scratch: seg_a/val_a and seg_b/val_b each hold 2 * ceil(c / chunk)
@@ -110,6 +144,43 @@ extern "C" int rating_segsum_launch(const void* segs, const void* vals, int c,
     if (nchunks == 1) break;
     sp = seg_buf[which];
     vp = val_buf[which];
+    cc = 2 * nchunks;
+    which ^= 1;
+  }
+  return 0;
+}
+
+// Batched entry: vals [alpha, c] (row stride c), one shared segs [c],
+// out [alpha, s] zeroed.  Scratch seg_a/val_a and seg_b/val_b each hold
+// alpha * 2 * ceil(c / chunk) entries (one row per member).
+extern "C" int rating_segsum_batch_launch(const void* segs, const void* vals,
+                                          int alpha, int c, void* out, int s,
+                                          void* seg_a, void* val_a,
+                                          void* seg_b, void* val_b, int chunk,
+                                          int threads, void* stream) {
+  if (chunk < 4 || c <= 0 || alpha <= 0 || alpha > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long stride = 2LL * ((c + chunk - 1) / chunk);
+  const int32_t* sp = (const int32_t*)segs;
+  const float* vp = (const float*)vals;
+  long long seg_stride = 0, val_stride = c;
+  int32_t* seg_buf[2] = {(int32_t*)seg_a, (int32_t*)seg_b};
+  float* val_buf[2] = {(float*)val_a, (float*)val_b};
+  int which = 0;
+  int cc = c;
+  while (true) {
+    const int nchunks = (cc + chunk - 1) / chunk;
+    const dim3 grid((unsigned)((nchunks + threads - 1) / threads),
+                    (unsigned)alpha);
+    segsum_level_batch_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+        sp, seg_stride, vp, val_stride, cc, chunk, (float*)out, s,
+        seg_buf[which], val_buf[which], stride);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if (nchunks == 1) break;
+    sp = seg_buf[which];
+    vp = val_buf[which];
+    seg_stride = val_stride = stride;
     cc = 2 * nchunks;
     which ^= 1;
   }

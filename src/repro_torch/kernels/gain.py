@@ -1,4 +1,4 @@
-"""Gain-assembly kernels (ports of ``repro.kernels.gain``'s batch kernels).
+"""Gain-assembly kernels (ports of ``repro.kernels.gain``).
 
 ``gain_gather_batch`` (entry ``table``, k <= ``GAIN_WARP_MAX_K``) and
 ``gain_stream_batch`` (entry ``stream``) compute
@@ -6,9 +6,13 @@
     gains[a, v, :] = sum_d bi[a, inc[v, d], :] - sum_d wi[a, inc[v, d]]
 
 for the whole population in one launch (``csrc/gain.cu`` says how each
-maps to the card).  On CPU tensors each wrapper runs its plain version
-from ``ref``; on CUDA tensors it launches its kernel or raises.  Each
-wrapper counts its kernel launches in its ``launches`` attribute.
+maps to the card).  ``gain_gather`` and ``gain_stream`` are the
+one-member forms (``gain_gather_pallas`` / ``gain_stream_pallas``) that
+the scalar LP tier calls: tables ``bi[M, k]``, ``wi[M]`` -> ``[N, k]``,
+the same two entries launched with one member.  On CPU tensors each
+wrapper runs its plain version from ``ref``; on CUDA tensors it launches
+its kernel or raises.  Each wrapper counts its kernel launches in its
+``launches`` attribute.
 """
 from __future__ import annotations
 
@@ -106,5 +110,35 @@ def gain_stream_batch(incident: torch.Tensor, becomes_internal: torch.Tensor,
                    was_internal)
 
 
+def _one_member(entry: str, wrapper, incident, becomes_internal,
+                was_internal):
+    if becomes_internal.dim() != 2 or was_internal.dim() != 1:
+        raise ValueError("expected tables bi [M, k] and wi [M]")
+    return _launch(entry, wrapper, incident, becomes_internal[None],
+                   was_internal[None])[0]
+
+
+def gain_gather(incident: torch.Tensor, becomes_internal: torch.Tensor,
+                was_internal: torch.Tensor) -> torch.Tensor:
+    """One-member entry ``table``: incident [N, D] int32 (pad -1),
+    becomes_internal [M, k] f32, was_internal [M] f32 -> [N, k] f32."""
+    if not incident.is_cuda:
+        return ref.gain_gather_ref(incident, becomes_internal, was_internal)
+    return _one_member("table", gain_gather, incident, becomes_internal,
+                       was_internal)
+
+
+def gain_stream(incident: torch.Tensor, becomes_internal: torch.Tensor,
+                was_internal: torch.Tensor) -> torch.Tensor:
+    """One-member entry ``stream``: same contract as ``gain_gather``, for
+    any k."""
+    if not incident.is_cuda:
+        return ref.gain_stream_ref(incident, becomes_internal, was_internal)
+    return _one_member("stream", gain_stream, incident, becomes_internal,
+                       was_internal)
+
+
 gain_gather_batch.launches = 0
 gain_stream_batch.launches = 0
+gain_gather.launches = 0
+gain_stream.launches = 0

@@ -15,10 +15,11 @@ path          chosen when
 ============  ==========================================================
 ``"table"``   the dense incidence layout is on a CUDA device and
               ``k <= GAIN_WARP_MAX_K``: kernel ``gain_gather_batch``
-              (one warp per (member, vertex) row)
+              (one warp per (member, vertex) row), or ``gain_gather``
+              for the scalar LP tier's one member
 ``"stream"``  the layout is on a CUDA device and k is larger: kernel
               ``gain_stream_batch`` (one block per member and vertex
-              tile)
+              tile), or ``gain_stream`` for one member
 ``"segsum"``  no layout on a CUDA device (CPU tensors, or a level whose
               layout the expansion guard dropped), ``k <= SEGSUM_MAX_K``:
               per-pin gather + segment-sum
@@ -28,8 +29,8 @@ path          chosen when
 ``REPRO_GAIN_PATH=table|stream|segsum|compact`` forces a path (the
 kernel paths only where a layout exists); ``auto``/unset means the table
 above.  ``REPRO_RATING_PATH=kernel|plain`` forces the rating
-aggregation; auto routes every round to the kernel (on CPU tensors the
-kernel wrapper runs its plain version).
+aggregation, scalar and batched alike; auto routes every round to the
+kernels (on CPU tensors the kernel wrappers run their plain versions).
 """
 from __future__ import annotations
 
@@ -50,6 +51,9 @@ KERNELS = {
     "gain_table": gain.gain_gather_batch,
     "gain_stream": gain.gain_stream_batch,
     "rating_segment_sum": rating.rating_segment_sum,
+    "rating_segment_sum_batch": rating.rating_segment_sum_batch,
+    "gain_table_one": gain.gain_gather,
+    "gain_stream_one": gain.gain_stream,
 }
 
 
@@ -100,6 +104,17 @@ def gain_path(m: int, k: int, incidence: Optional[torch.Tensor] = None
     return "table" if k <= GAIN_WARP_MAX_K else "stream"
 
 
+def gain_assemble(incident: torch.Tensor, becomes_internal: torch.Tensor,
+                  was_internal: torch.Tensor, path: str) -> torch.Tensor:
+    """Kernel-path gain assembly of one member (``path`` in {"table",
+    "stream"}): tables [M, k] / [M] -> [N, k]."""
+    if path == "table":
+        return gain.gain_gather(incident, becomes_internal, was_internal)
+    if path == "stream":
+        return gain.gain_stream(incident, becomes_internal, was_internal)
+    raise ValueError(f"not a kernel gain path: {path!r}")
+
+
 def gain_assemble_batch(incident: torch.Tensor,
                         becomes_internal: torch.Tensor,
                         was_internal: torch.Tensor, path: str
@@ -135,3 +150,13 @@ def rating_segment_sum(vals: torch.Tensor, segs: torch.Tensor,
     if rating_path(vals.shape[0]) == "kernel":
         return rating.rating_segment_sum(vals, segs, num_segments)
     return ref.rating_segment_sum_ref(vals, segs, num_segments)
+
+
+def rating_segment_sum_batch(vals: torch.Tensor, segs: torch.Tensor,
+                             num_segments: int) -> torch.Tensor:
+    """Per-member segment-sums of the mutation cohort's ratings
+    ``vals[alpha, C]`` over one shared sorted ``segs[C]``, routed by
+    ``rating_path()``; every row equals ``rating_segment_sum`` on it."""
+    if rating_path(vals.shape[-1]) == "kernel":
+        return rating.rating_segment_sum_batch(vals, segs, num_segments)
+    return ref.rating_segment_sum_batch_ref(vals, segs, num_segments)

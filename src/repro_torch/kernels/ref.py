@@ -53,6 +53,22 @@ def gain_stream_batch_ref(incident: torch.Tensor,
     return out
 
 
+def gain_gather_ref(incident: torch.Tensor, becomes_internal: torch.Tensor,
+                    was_internal: torch.Tensor) -> torch.Tensor:
+    """One-member gain assembly: tables bi [M, k], wi [M] -> [N, k]."""
+    return gain_gather_batch_ref(incident, becomes_internal[None],
+                                 was_internal[None])[0]
+
+
+def gain_stream_ref(incident: torch.Tensor, becomes_internal: torch.Tensor,
+                    was_internal: torch.Tensor,
+                    block_m: int = 2048) -> torch.Tensor:
+    """One-member edge-tile-order gain assembly (``gain_stream_batch_ref``
+    with one member)."""
+    return gain_stream_batch_ref(incident, becomes_internal[None],
+                                 was_internal[None], block_m)[0]
+
+
 def rating_segment_sum_ref(vals: torch.Tensor, segs: torch.Tensor,
                            num_segments: int) -> torch.Tensor:
     """Segment-sum of candidate ratings: ``out[s] = sum vals[c]`` over
@@ -62,6 +78,17 @@ def rating_segment_sum_ref(vals: torch.Tensor, segs: torch.Tensor,
                        device=vals.device).index_add_(
         0, torch.where(ok, segs, num_segments - 1).long(),
         torch.where(ok, vals, 0.0))
+
+
+def rating_segment_sum_batch_ref(vals: torch.Tensor, segs: torch.Tensor,
+                                 num_segments: int) -> torch.Tensor:
+    """Per-member rating sums: vals [alpha, C] over one shared segs [C]
+    -> [alpha, num_segments]; row a is ``rating_segment_sum_ref(vals[a])``
+    (the rows are summed one at a time, so they are bit-equal to it)."""
+    return torch.stack([rating_segment_sum_ref(row, segs, num_segments)
+                        for row in vals]) if vals.shape[0] else \
+        torch.zeros((0, num_segments), dtype=torch.float32,
+                    device=vals.device)
 
 
 def gain_gather_embedding_bag(incident: torch.Tensor,

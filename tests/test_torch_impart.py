@@ -1,15 +1,17 @@
-"""The port's slice as a whole: ``impart_partition`` with the memetic
-operators off (``recombination_enabled=False, mutation_enabled=False,
-final_vcycles=0``), static schedule, one device.
+"""The port's driver as a whole: ``impart_partition`` with the static
+schedule on one device, with the memetic operators off and in its
+default configuration (recombination, mutation, one final V-cycle).
 
 * Under host coarsening both packages run the same numpy hierarchy, so
-  every member's partition and cut must be bit-equal.
+  with mutation off (recombination and the final V-cycle on or off)
+  every member's partition and cut, and the trace, must be bit-equal.
 * Under the device engine the tie-jitter bits differ (``jax.random`` vs
   ``torch.Generator``), so the matchings and hence the partitions
-  differ.  As in the reference's own engine-parity test, single-seed
-  cuts on this 600-vertex instance spread by about +-20%, so the check
-  compares cuts averaged over three seeds: their ratio must lie within
-  [0.8, 1.25].
+  differ.  Mutation always coarsens with the device engine, so runs
+  with mutation differ the same way.  As in the reference's own
+  engine-parity test, single-seed cuts on this 600-vertex instance
+  spread by about +-20%, so those checks compare cuts averaged over
+  three seeds: their ratio must lie within [0.8, 1.25].
 """
 import pathlib
 import re
@@ -61,12 +63,65 @@ def test_impart_device_engine_cut_within_tolerance(small_hg, monkeypatch):
     assert 0.8 <= ratio <= 1.25, cuts
 
 
+@pytest.mark.parametrize("k", [4, 8])
+def test_impart_full_config_mutation_off_bit_equal(k, small_hg,
+                                                   monkeypatch):
+    """Recombination at the beta thresholds and the final V-cycle, under
+    host coarsening: parts, cuts and the trace bit-equal."""
+    monkeypatch.setenv("REPRO_COARSEN_PATH", "host")
+    kw = dict(k=k, eps=0.08, alpha=3, beta=2, seed=1, mutation_enabled=False)
+    want = ref_impart(small_hg.structural_copy(), RefConfig(**kw))
+    got = impart_partition(port_hg(small_hg), ImpartConfig(**kw),
+                           device="cpu")
+    assert got.population_cuts == want.population_cuts
+    assert got.cut == want.cut
+    assert_bit_equal(got.part, want.part)
+    assert [t[2] for t in got.trace] == [t[2] for t in want.trace]
+    assert [t[1] for t in got.trace] == [t[1] for t in want.trace]
+    assert any(t[2] == "final-vcycle@0" for t in got.trace)
+
+
+def test_impart_default_config_cut_within_tolerance(small_hg):
+    """The reference defaults with mutation on: cuts averaged over three
+    seeds within [0.8, 1.25] of the reference's, every result balanced
+    and the reported cut the partition's."""
+    cuts = {"ref": [], "port": []}
+    for seed in (1, 2, 3):
+        kw = dict(k=4, eps=0.08, alpha=3, beta=2, seed=seed, lp_iters=4)
+        want = ref_impart(small_hg.structural_copy(), RefConfig(**kw))
+        got = impart_partition(port_hg(small_hg), ImpartConfig(**kw),
+                               device="cpu")
+        assert [t[2] for t in got.trace] == [t[2] for t in want.trace]
+        assert any(t[2].startswith("mutate@") for t in got.trace)
+        cuts["ref"].append(want.cut)
+        cuts["port"].append(got.cut)
+        bw = np.bincount(got.part, small_hg.vertex_weights, minlength=4)
+        assert bw.max() <= 1.08 * np.ceil(small_hg.vertex_weights.sum() / 4)
+        lam = [len(set(got.part[small_hg.pins[a:b]]))
+               for a, b in zip(small_hg.edge_offsets[:-1],
+                               small_hg.edge_offsets[1:])]
+        assert got.cut == float(small_hg.edge_weights[np.asarray(lam) > 1]
+                                .sum())
+    ratio = np.mean(cuts["port"]) / max(np.mean(cuts["ref"]), 1e-9)
+    assert 0.8 <= ratio <= 1.25, cuts
+
+
+def test_bandit_schedule_still_raises(tiny_hg, monkeypatch):
+    """The bandit schedule belongs to the scheduler slice, whether asked
+    for by config, by replay or by ``REPRO_SCHED``."""
+    for cfg in (dict(sched="bandit"), dict(sched_replay=object())):
+        with pytest.raises(NotImplementedError, match="operator scheduler"):
+            impart_partition(port_hg(tiny_hg), ImpartConfig(k=2, **cfg),
+                             device="cpu")
+    monkeypatch.setenv("REPRO_SCHED", "bandit")
+    with pytest.raises(NotImplementedError, match="operator scheduler"):
+        impart_partition(port_hg(tiny_hg), ImpartConfig(k=2), device="cpu")
+
+
 @pytest.mark.parametrize("kw", [
-    dict(recombination_enabled=True), dict(mutation_enabled=True),
-    dict(final_vcycles=1), dict(sched="bandit"), dict(pop_shard="mesh"),
+    dict(sched="bandit"), dict(pop_shard="mesh"),
     dict(pop_shard="chunk"), dict(model_shard="mesh")],
-    ids=["recombination", "mutation", "vcycle", "bandit", "pop_mesh",
-         "pop_chunk", "model_mesh"])
+    ids=["bandit", "pop_mesh", "pop_chunk", "model_mesh"])
 def test_later_slice_options_raise(kw, tiny_hg):
     cfg = dict(k=2, alpha=2, **SLICE)
     cfg.update(kw)

@@ -128,10 +128,9 @@ def test_rebalance_equal(small_hg):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(edge_weights_pop=np.ones((1, 8), np.float32)),
     dict(shard="mesh"), dict(model_shard="mesh"),
     dict(incumbent=np.zeros(4, np.int32), mig_budget=1.0)],
-    ids=["edge_weights_pop", "shard", "model_shard", "incumbent"])
+    ids=["shard", "model_shard", "incumbent"])
 def test_later_slice_options_raise(kw, tiny_hg):
     hga = port_arrays(tiny_hg.structural_copy().arrays())
     parts = np.zeros((1, hga.n_pad), np.int32)
