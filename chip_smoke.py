@@ -30,14 +30,38 @@ Phases, each of which fails the script (non-zero exit) when it fails:
 7. the partition CLI: ``python -m repro_torch.launch.partition --method
    multilevel`` in a child process on ``ibm08_like`` (k=64, one-member
    stream kernel) and ``ibm01_like`` (k=16, one-member table kernel); its
-   saved assignment is reloaded and checked.
+   saved assignment is reloaded and checked;
+8. the public kernel ops (``kernels.ops.connectivity``, ``cutsize`` and
+   ``embedding_bag``): connectivity and cut of a k=32 partition of
+   ``ibm08_like``'s pin matrix, and one DLRM embedding bag (26 sparse
+   features x 65,536 bags, D=128, the MLPerf cardinalities capped at
+   2**20 rows);
+9. the bandit operator schedule on ``ibm01_like`` (k=16, the reference
+   defaults): the static schedule's wall W, a ``sched="bandit"`` run with
+   ``time_budget_s=W``, and the replay of its trace after a JSON
+   round-trip, which must give the live partition, cut and arm sequence
+   bit for bit.
+
+The kernel phase also holds the connectivity and cut kernels (#7/#8) and
+the embedding bag (#9) against their plain versions, and checks that
+every sum of mutation's real-valued reweights gives the same bits in two
+runs on the card (``contract_arrays(ew_pop=)``, the gain assembly on the
+segsum and compact paths, one graphed FM pass with member rows).
 
 Every main path runs with the launch counters zeroed just before it and
-read just after it, and its cut and balance are recomputed in numpy.
+read just after it.  Its cut and balance are recomputed in numpy, and
+its cut once more on the card through ``ops.connectivity`` and
+``ops.cutsize`` (the kernels at k <= 32, the plain versions above, as
+the ops route), which must agree with the host.
 
-``--phases`` takes a comma list of ``kernels,parity,off,memetic,cli``
-(default: all) for runs that debug one phase; the kernels line is only
-printed when every phase ran.  With ``--profile`` the script then splits
+``--phases`` takes a comma list of
+``kernels,parity,off,memetic,cli,ops,sched`` (default: all; empty for
+none) for runs that debug one phase; the kernels line is only printed
+when every phase ran.  ``--repair-cost=DIR`` then times the static
+memetic run of the ``sched`` phase with its mutation seconds on the
+package under ``DIR`` (the ``src`` of a tree before the fixed-order sums
+of mutation's reweights) and on this one, in child processes, in the
+order DIR, this, this, DIR.  With ``--profile`` the script then splits
 each memetic-off run into its phases (coarsening, initial partition, LP,
 FM; host clock around synchronized work) and traces the ibm08 run with
 ``torch.profiler`` to report the device's busy share and its top
@@ -77,8 +101,25 @@ KERNEL_META = {
                        "src/repro/kernels/gain.py:75"),
     "gain_stream_one": ("src/repro_torch/kernels/csrc/gain.cu",
                         "src/repro/kernels/gain.py:190"),
+    "connectivity": ("src/repro_torch/kernels/csrc/connectivity.cu",
+                     "src/repro/kernels/connectivity.py:64"),
+    "cutsize": ("src/repro_torch/kernels/csrc/connectivity.cu",
+                "src/repro/kernels/connectivity.py:111"),
+    "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
+                      "src/repro/kernels/embedding_bag.py:66"),
 }
-PHASES = ("kernels", "parity", "off", "memetic", "cli")
+PHASES = ("kernels", "parity", "off", "memetic", "cli", "ops", "sched")
+
+# MLPerf DLRM (Criteo 1TB): 26 sparse features, embed_dim 128, the table
+# cardinalities of the reference's dlrm_mlperf config, each capped here
+# at 2**20 rows; one training batch of 65,536 samples
+DLRM_TABLE_SIZES = (
+    39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
+    2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771,
+    25641295, 39664984, 585935, 12972, 108, 36)
+DLRM_ROW_CAP = 2 ** 20
+DLRM_BATCH = 65536
+DLRM_DIM = 128
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -367,6 +408,259 @@ def check_rating_kernel(report, dev):
         bound_by=by, library_ms=lib_ms)
 
 
+def _pin_inputs(design: str, k: int, seed: int, dev):
+    """The design's padded pin matrix (``ops.edge_pin_matrix``), a seeded
+    k-way partition, the instance's (integer) edge weights and seeded
+    real weights, both zero on the pad rows."""
+    import numpy as np
+    import torch
+    from repro_torch.data.hypergraphs import ispd_like
+    from repro_torch.kernels import ops
+    hg = ispd_like(design, 1.0)
+    pins = torch.from_numpy(ops.edge_pin_matrix(hg)).to(dev)
+    rng = np.random.default_rng(seed)
+    part = torch.from_numpy(rng.integers(0, k, hg.n).astype(np.int32)).to(dev)
+    iw = np.zeros(pins.shape[0], np.float32)
+    iw[: hg.m] = hg.edge_weights
+    rw = np.zeros(pins.shape[0], np.float32)
+    rw[: hg.m] = rng.random(hg.m) + 0.5
+    return (hg, pins, part, torch.from_numpy(iw).to(dev),
+            torch.from_numpy(rw).to(dev))
+
+
+def _connectivity_checked(pins, part, iw, rw, k: int, what) -> float:
+    """Kernels #7/#8 against their plain versions: lambda bit-equal, the
+    cut of integer weights equal, of real weights within rel 1e-5 and
+    bit-stable over two launches.  Returns the real cut's abs error."""
+    import torch
+    from repro_torch.kernels import connectivity, ref
+    lam = connectivity.connectivity(pins, part, k)
+    if not torch.equal(lam, ref.connectivity_ref(pins, part, k)):
+        raise AssertionError(f"connectivity differs from its plain version "
+                             f"at {what}")
+    if not torch.equal(connectivity.cutsize(pins, part, iw, k),
+                       ref.cutsize_ref(pins, part, iw, k)):
+        raise AssertionError(f"cutsize (integer weights) differs from its "
+                             f"plain version at {what}")
+    got = connectivity.cutsize(pins, part, rw, k)
+    again = connectivity.cutsize(pins, part, rw, k)
+    want = ref.cutsize_ref(pins, part, rw, k)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"cutsize not bit-stable at {what}")
+    err = abs(float(got) - float(want))
+    if err > 1e-5 * abs(float(want)):
+        raise AssertionError(f"cutsize {float(got)!r} vs plain "
+                             f"{float(want)!r} at {what}")
+    return err
+
+
+def check_connectivity_kernels(report, dev):
+    """Kernels #7/#8 at the reference's sweeps, an odd edge count, and the
+    pin matrices of ibm08_like (k=32) and ibm01_like (k=16); timed at
+    ibm08_like."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import connectivity, ref
+    rng = np.random.default_rng(7)
+    errs = []
+    odd = [(512, 8, 300, 2), (512, 16, 1000, 8), (1024, 32, 4096, 32),
+           (512, 128, 512, 17), (130, 8, 300, 5), (512, 8, 256, 4),
+           (2048, 16, 2048, 16)]
+    for m, s, n, k in odd:
+        pins = torch.from_numpy(rng.integers(-1, n, (m, s)).astype(
+            np.int32)).to(dev)
+        part = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).to(dev)
+        iw = torch.from_numpy(rng.integers(0, 9, m).astype(np.float32)).to(dev)
+        rw = torch.from_numpy(rng.random(m).astype(np.float32)).to(dev)
+        errs.append(_connectivity_checked(pins, part, iw, rw, k, (m, s, n, k)))
+    for design, k in (("ibm01_like", 16), ("ibm08_like", 32)):
+        hg, pins, part, iw, rw = _pin_inputs(design, k, 0, dev)
+        errs.append(_connectivity_checked(pins, part, iw, rw, k, design))
+    # ibm08_like (the last one) is the timed shape
+    m, s = pins.shape
+    valid = int((pins >= 0).sum())
+    # each input read once, each output written once: the pin matrix, the
+    # partition [n], then lambda [m] out, or w [m] in and the cut out
+    in_bytes = m * s * 4 + part.shape[0] * 4
+    cases = {
+        "connectivity": (lambda: connectivity.connectivity(pins, part, k),
+                         lambda: ref.connectivity_ref(pins, part, k),
+                         in_bytes + m * 4, 0.0),
+        "cutsize": (lambda: connectivity.cutsize(pins, part, rw, k),
+                    lambda: ref.cutsize_ref(pins, part, rw, k),
+                    in_bytes + m * 4 + 4, max(errs)),
+    }
+    for name, (kern, plain, nbytes, err) in cases.items():
+        ms = _time_ms(kern)
+        plain_ms = _time_ms(plain, iters=5)
+        bound, by = _bound_ms(nbytes, valid)
+        print(f"[kernel] {name} ibm08_like pins={tuple(pins.shape)} k={k}: "
+              f"equal to its plain version at main-path and {len(odd)} odd "
+              "shapes (cutsize: integer weights equal, real weights rel "
+              "1e-5 and bit-stable)")
+        for label, val in (("ms", ms), ("plain_ms", plain_ms),
+                           ("library_ms", None), ("bound_ms", bound)):
+            print(f"[kernel] {name} {label} {val!r}")
+        report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def _dlrm_inputs(dev):
+    """One DLRM embedding-bag batch: the concatenated table of the 26
+    capped cardinalities (seeded normal values on the card) and ids drawn
+    as the reference's click generator draws them (zipf 1.1 per table,
+    offset into the concatenated table), about 5% of them set to -1."""
+    import numpy as np
+    import torch
+    sizes = [min(t, DLRM_ROW_CAP) for t in DLRM_TABLE_SIZES]
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    rng = np.random.default_rng(0)
+    idx = np.zeros((DLRM_BATCH, len(sizes)), np.int64)
+    for t, size in enumerate(sizes):
+        idx[:, t] = offs[t] + (rng.zipf(1.1, size=DLRM_BATCH) - 1) % size
+    idx[rng.random(idx.shape) < 0.05] = -1
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn((sum(sizes), DLRM_DIM), generator=gen, device=dev)
+    return table, torch.from_numpy(idx.astype(np.int32)).to(dev)
+
+
+def check_embedding_bag_kernel(report, dev):
+    """Kernel #9 against its plain version at the DLRM shape (f32 sum and
+    mean, bf16) and at the reference's sweep; timed at the DLRM shape
+    beside ``torch.nn.functional.embedding_bag``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import embedding_bag, ref
+    errs = []
+
+    def checked(table, idx, combiner, what):
+        tol = 1e-5 if table.dtype == torch.float32 else 2e-2
+        got = embedding_bag.embedding_bag(table, idx, combiner)
+        again = embedding_bag.embedding_bag(table, idx, combiner)
+        want = ref.embedding_bag_ref(table, idx, combiner)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=lambda m: f"{what}: {m}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"embedding_bag not bit-stable at {what}")
+        if table.dtype == torch.float32:
+            errs.append(float((got - want).abs().max()))
+
+    rng = np.random.default_rng(9)
+    sweep = [(100, 16, 8, 4, torch.float32, "sum"),
+             (1000, 64, 32, 1, torch.float32, "sum"),
+             (500, 32, 16, 8, torch.float32, "mean"),
+             (100, 128, 8, 2, torch.bfloat16, "sum"),
+             (300, 36, 7, 26, torch.bfloat16, "mean"),
+             (257, 30, 1001, 5, torch.float32, "sum")]
+    for r, d, b, l, dtype, combiner in sweep:
+        table = torch.from_numpy(rng.normal(size=(r, d)).astype(
+            np.float32)).to(dev, dtype)
+        idx = torch.from_numpy(rng.integers(-1, r, (b, l)).astype(
+            np.int32)).to(dev)
+        checked(table, idx, combiner, (r, d, b, l, dtype, combiner))
+    table, idx = _dlrm_inputs(dev)
+    for combiner in ("sum", "mean"):
+        checked(table, idx, combiner, f"DLRM {combiner}")
+    half = table.to(torch.bfloat16)
+    checked(half, idx, "sum", "DLRM bf16")
+    del half
+    b, l = idx.shape
+    ms = _time_ms(lambda: embedding_bag.embedding_bag(table, idx))
+    plain_ms = _time_ms(lambda: ref.embedding_bag_ref(table, idx), iters=3)
+    ids = idx.clamp(min=0)
+    weights = (idx >= 0).to(torch.float32)
+    lib_ms = _time_ms(lambda: torch.nn.functional.embedding_bag(
+        ids, table, mode="sum", per_sample_weights=weights))
+    # each input read once: the distinct rows the valid ids name (the
+    # skewed ids repeat rows, which a cache serves), the ids, the output
+    distinct = int(torch.unique(idx[idx >= 0]).numel())
+    nbytes = distinct * DLRM_DIM * 4 + b * l * 4 + b * DLRM_DIM * 4
+    bound, by = _bound_ms(nbytes, int((idx >= 0).sum()) * DLRM_DIM)
+    print(f"[kernel] embedding_bag DLRM table={tuple(table.shape)} "
+          f"idx={tuple(idx.shape)} ({distinct} distinct rows, "
+          f"{float((idx < 0).float().mean())!r} pads): allclose 1e-5 (f32 "
+          f"sum, mean), 2e-2 (bf16), bit-stable, at main-path and "
+          f"{len(sweep)} sweep shapes")
+    for label, val in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", bound)):
+        print(f"[kernel] embedding_bag {label} {val!r}")
+    report["embedding_bag"] = dict(max_abs_err=max(errs), ms=ms,
+                                   plain_ms=plain_ms, bound_ms=bound,
+                                   bound_by=by, library_ms=lib_ms)
+    del table, idx, ids, weights
+    torch.cuda.empty_cache()
+
+
+def check_fixed_order_sums(dev):
+    """Every sum of mutation's real-valued reweights, twice on the card
+    at ibm08_like shapes (alpha 7, rows ``w * (1 + 0.1 * C)``): the bits
+    must agree.  ``index_add_``, which the fixed-order sums replace, is
+    run twice too and reported."""
+    import numpy as np
+    import torch
+    from repro_torch.core import hypergraph, metrics, refine
+    from repro_torch.data.hypergraphs import ispd_like
+    hg = ispd_like("ibm08_like", 1.0)
+    hga = hg.arrays(device=dev)
+    alpha, k = 7, 64
+    rng = np.random.default_rng(3)
+    ew = np.zeros((alpha, hga.m_pad), np.float32)
+    ew[:, : hg.m] = hg.edge_weights * (
+        1.0 + 0.1 * rng.integers(0, alpha, (alpha, hg.m)))
+    ew = torch.from_numpy(ew).to(dev)
+    parts = torch.from_numpy(rng.integers(0, k, (alpha, hga.n_pad)).astype(
+        np.int32)).to(dev)
+
+    def twice(what, fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        if not same:
+            raise AssertionError(f"{what}: two runs on the card differ")
+        return same
+
+    cid = torch.arange(hga.n_pad, device=dev) // 2
+    cid = torch.where(torch.arange(hga.n_pad, device=dev) < hg.n, cid,
+                      hga.n_pad - 1)
+    n_new = (hg.n + 1) // 2
+    twice("contract_arrays(ew_pop=)", lambda: hypergraph.contract_arrays(
+        hga, cid, n_new, ew_pop=ew)[2:])
+    for path in ("segsum", "compact"):
+        twice(f"gain assembly ({path}, ew_pop)",
+              lambda: (metrics._gain_matrix_population_impl(
+                  hga, parts, k, assemble=path, ew_pop=ew),))
+    cap = refine._cap_for(hga, k, 0.03)
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    twice("graphed FM pass (edge_weights_pop)",
+          lambda: refine._fm_pass_population_impl(
+              hga, parts, k, cap, 2 * refine.FM_FLAG_EVERY, ew))
+    # each pass: one eager warm-up step before the capture, then one #4
+    # launch per step of every replay; the capture itself counts none
+    n4 = ops.launch_counts()["rating_segment_sum_batch"]
+    print(f"[determinism] two graphed FM passes of {2 * refine.FM_FLAG_EVERY}"
+          f" steps: {n4} launches of rating_segment_sum_batch counted")
+    if n4 % refine.FM_FLAG_EVERY != 2 or n4 < 2 + 2 * refine.FM_FLAG_EVERY:
+        raise AssertionError(f"graphed FM passes counted {n4} launches of "
+                             "#4, not 2 warm-ups plus 32 per replay")
+    # the atomics the repair replaces, for the record: the segsum
+    # assembly's per-vertex sums with ``index_add_``
+    phi = metrics.pins_in_block_population(hga, parts, k)
+    bi, _ = metrics._edge_gain_terms(hga, phi, ew)
+    pe, pv = hga.pin_edge.long(), hga.pin_vertex.long()
+    a, b = (torch.zeros((alpha, hga.n_pad, k), device=dev).index_add_(
+        1, pv, bi[:, pe]) for _ in range(2))
+    atomics_equal = bool(torch.equal(a, b))
+    print("[determinism] ibm08_like alpha=7 k=64 reweighted rows: "
+          "contract_arrays(ew_pop=), gain assembly (segsum, compact) and "
+          "one graphed FM pass give equal bits in two runs; index_add_ "
+          f"segsum gains equal in two runs: {atomics_equal}")
+    del a, b
+    torch.cuda.empty_cache()
+
+
 def check_small_parity():
     """A 600-vertex instance under host coarsening: the card (kernel gain
     path) and the CPU (plain path) must agree on every member."""
@@ -395,17 +689,62 @@ def check_small_parity():
           f"{cpu.gain_paths}")
 
 
-def host_cut_and_balance(hg, part, k: int, eps: float):
-    """Cut and balance of ``part`` recomputed in numpy."""
+def host_lambda(hg, part, k: int):
+    """lambda(e) of ``part`` in numpy."""
     import numpy as np
     eids = hg.pin_edge_ids().astype(np.int64)
     pairs = np.unique(eids * k + part[hg.pins].astype(np.int64))
-    lam = np.bincount(pairs // k, minlength=hg.m)
+    return np.bincount(pairs // k, minlength=hg.m)
+
+
+def host_cut_and_balance(hg, part, k: int, eps: float):
+    """Cut and balance of ``part`` recomputed in numpy."""
+    import numpy as np
+    lam = host_lambda(hg, part, k)
     cut = float(hg.edge_weights.astype(np.float64)[lam > 1].sum())
     bw = np.bincount(part, weights=hg.vertex_weights, minlength=k)
     cap = (1.0 + eps) * np.ceil(hg.vertex_weights.sum() / k)
     return cut, bool((bw <= cap + 1e-6).all() and part.max() < k
                      and part.min() >= 0), float(bw.max()), float(cap)
+
+
+def card_cut_check(hg, part, k: int, host_cut: float, tag: str) -> dict:
+    """The result's lambda and cut once more on the card, through the
+    public ops on the design's pin matrix (kernels #7/#8 at k <= 32, the
+    plain versions above, as ``ops`` routes them); both must equal the
+    host's.  Zeroes the launch counters first (the caller has read its
+    path's) and returns the check's own launches, which must include #7
+    and #8 on the kernel route."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.common import KERNEL_MAX_K
+    dev = torch.device("cuda")
+    pins = torch.from_numpy(ops.edge_pin_matrix(hg)).to(dev)
+    w = np.zeros(pins.shape[0], np.float32)
+    w[: hg.m] = hg.edge_weights
+    part_t = torch.from_numpy(np.asarray(part, np.int32)).to(dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    lam = ops.connectivity(pins, part_t, k)[: hg.m].cpu().numpy()
+    cut = float(ops.cutsize(pins, part_t, torch.from_numpy(w).to(dev), k))
+    counts = {n: c for n, c in ops.launch_counts().items() if c}
+    route = "kernel" if k <= KERNEL_MAX_K else "plain (k > KERNEL_MAX_K)"
+    print(f"[cutcheck] {tag} k={k} ops.connectivity/ops.cutsize route "
+          f"{route}: card cut {cut!r} host cut {host_cut!r}; the check's "
+          f"launches {counts}")
+    if cut != host_cut or not np.array_equal(lam, host_lambda(hg, part, k)):
+        raise AssertionError(f"{tag}: card cut {cut} (or lambda) differs "
+                             f"from the host's {host_cut}")
+    if k <= KERNEL_MAX_K and not (counts.get("connectivity")
+                                  and counts.get("cutsize")):
+        raise AssertionError(f"{tag}: the check did not launch #7 and #8")
+    return counts
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
 
 
 def run_main_path(design: str, k: int, must_launch, eps: float = 0.03):
@@ -425,6 +764,7 @@ def run_main_path(design: str, k: int, must_launch, eps: float = 0.03):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     cut, balanced, bw_max, cap = host_cut_and_balance(hg, res.part, k, eps)
+    check = card_cut_check(hg, res.part, k, cut, f"{design} memetic off")
     print(f"[main] {design} n={hg.n} m={hg.m} pins={hg.num_pins} k={k} "
           f"alpha={cfg.alpha}: levels {res.levels}")
     print(f"[main] {design} gain path per level (coarsest first): "
@@ -438,6 +778,7 @@ def run_main_path(design: str, k: int, must_launch, eps: float = 0.03):
     if missing:
         raise AssertionError(f"{design}: kernels never launched on the main "
                              f"path: {missing}")
+    _add_counts(counts, check)
     return counts, res.cut
 
 
@@ -496,11 +837,12 @@ def run_memetic_path(design: str, k: int, off_cut, must_launch,
         res = impart_partition(hg, cfg, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
     finally:
         for w in wraps.values():
             w.restore()
+    counts = ops.launch_counts()
     cut, balanced, bw_max, cap = host_cut_and_balance(hg, res.part, k, eps)
+    check = card_cut_check(hg, res.part, k, cut, f"{design} memetic")
     events = [t[2] for t in res.trace]
     n_rec = wraps["recombine"].calls
     branches = dict(exact=wraps["exact"].calls, ils=wraps["ils"].calls,
@@ -533,6 +875,7 @@ def run_memetic_path(design: str, k: int, off_cut, must_launch,
     if missing:
         raise AssertionError(f"{design}: kernels never launched on the "
                              f"memetic path: {missing}")
+    _add_counts(counts, check)
     return counts
 
 
@@ -580,6 +923,8 @@ def run_cli(design: str, k: int, must_launch, eps: float = 0.08):
     print(f"[cli] {design} k={k} child wall_s {wall!r} host cut {cut!r} "
           f"printed cut {printed_cut!r} max block weight {bw_max!r} cap "
           f"{cap!r}")
+    # the saved assignment's cut on the card, counted with the child's
+    check = card_cut_check(hg, part, k, cut, f"CLI {design}")
     if cut != printed_cut or not balanced:
         raise AssertionError(f"CLI {design}: host cut {cut} vs printed "
                              f"{printed_cut}, balanced={balanced}")
@@ -587,7 +932,221 @@ def run_cli(design: str, k: int, must_launch, eps: float = 0.08):
     if missing:
         raise AssertionError(f"CLI {design}: kernels never launched: "
                              f"{missing}")
+    _add_counts(counts, check)
     return counts
+
+
+def run_ops_path(must_launch):
+    """The public kernel ops as a caller of ``repro_torch.kernels.ops``
+    uses them: connectivity and cut of a seeded k=32 partition of
+    ibm08_like's pin matrix, and one DLRM embedding bag.  Results are
+    checked against numpy (lambda, cut) and the plain version (bag)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.common import KERNEL_MAX_K
+    dev = torch.device("cuda")
+    k = 32
+    hg, pins, part, iw, _ = _pin_inputs("ibm08_like", k, 1, dev)
+    table, idx = _dlrm_inputs(dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lam = ops.connectivity(pins, part, k)
+    cut = ops.cutsize(pins, part, iw, k)
+    bag = ops.embedding_bag(table, idx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    part_h = part.cpu().numpy()
+    lam_h = host_lambda(hg, part_h, k)
+    cut_h = float(hg.edge_weights.astype(np.float64)[lam_h > 1].sum())
+    print(f"[ops] ibm08_like k={k} pins={tuple(pins.shape)}: "
+          f"ops.connectivity and ops.cutsize route "
+          f"{'kernel' if k <= KERNEL_MAX_K else 'plain'}; cut {float(cut)!r} "
+          f"host cut {cut_h!r}")
+    print(f"[ops] DLRM ops.embedding_bag route kernel: out "
+          f"{tuple(bag.shape)} {bag.dtype}; wall_s of the three calls "
+          f"{wall!r}; launches {counts}")
+    if not (np.array_equal(lam[: hg.m].cpu().numpy(), lam_h)
+            and bool((lam[hg.m:] == 0).all()) and float(cut) == cut_h):
+        raise AssertionError("ops.connectivity/ops.cutsize disagree with "
+                             "the host")
+    if not bool(torch.isfinite(bag).all()):
+        raise AssertionError("ops.embedding_bag returned non-finite values")
+    torch.testing.assert_close(bag, ref.embedding_bag_ref(table, idx),
+                               rtol=1e-5, atol=1e-5)
+    # above KERNEL_MAX_K the ops take the plain versions, as the
+    # reference's ops do
+    part64 = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 64, hg.n).astype(np.int32)).to(dev)
+    lam64 = ops.connectivity(pins, part64, 64)[: hg.m].cpu().numpy()
+    if not np.array_equal(lam64, host_lambda(hg, part64.cpu().numpy(), 64)):
+        raise AssertionError("ops.connectivity at k=64 disagrees with the "
+                             "host")
+    print("[ops] ibm08_like k=64: ops.connectivity route plain "
+          "(k > KERNEL_MAX_K), lambda equal to the host's")
+    missing = [n for n in must_launch if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"ops path: kernels never launched: {missing}")
+    del table, idx, bag
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_sched_path(design: str, k: int, must_launch, eps: float = 0.03,
+                   beta: int = 7):
+    """The bandit operator schedule, following the reference's
+    equal-wall-clock protocol: the static schedule's wall W, a bandit run
+    with ``time_budget_s=W``, and the replay of its trace after a JSON
+    round-trip, which must give the live partition, cut, arm sequence and
+    final V-cycle count bit for bit.  Every result's cut is recomputed on
+    the host (balanced) and on the card (``card_cut_check``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import impart, mutate
+    from repro_torch.core.impart import ImpartConfig, impart_partition
+    from repro_torch.core.scheduler import SchedulerTrace
+    from repro_torch.data.hypergraphs import ispd_like
+    from repro_torch.kernels import ops
+    hg = ispd_like(design, 1.0)
+    common = dict(k=k, eps=eps, alpha=7, beta=beta, seed=0, final_vcycles=1)
+    total, path_total = {}, {}
+
+    def drive(label, cfg):
+        cohorts = _Timed(mutate, "vcycle_population")
+        split = {"recombination": _Timed(impart, "ring_recombination"),
+                 "mutation": _Timed(impart, "mutate_population"),
+                 "final V-cycle": _Timed(impart, "vcycle")}
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = impart_partition(hg.structural_copy(), cfg, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            cohorts.restore()
+            for w in split.values():
+                w.restore()
+        counts = ops.launch_counts()
+        secs = {n: w.seconds for n, w in split.items()}
+        secs["the rest (coarsening, initial, refinement)"] = (
+            wall - sum(secs.values()))
+        print(f"[sched] {design} {label} wall split (s): "
+              + ", ".join(f"{n} {v!r}" for n, v in secs.items()))
+        cut, balanced, bw_max, cap = host_cut_and_balance(hg, res.part, k,
+                                                          eps)
+        check = card_cut_check(hg, res.part, k, cut,
+                               f"{design} sched {label}")
+        _add_counts(total, counts)
+        _add_counts(total, check)
+        _add_counts(path_total, counts)
+        print(f"[sched] {design} {label}: wall_s {wall!r} cut {res.cut!r} "
+              f"host cut {cut!r} max block weight {bw_max!r} cap {cap!r} "
+              f"degraded {res.degraded} mutation cohorts re-partitioned "
+              f"{cohorts.calls} launches {counts}")
+        if cut != res.cut or not balanced:
+            raise AssertionError(f"sched {label}: host cut {cut} vs "
+                                 f"{res.cut}, balanced={balanced}")
+        return res, wall, cohorts.calls
+
+    print(f"[sched] {design} n={hg.n} m={hg.m} k={k} eps={eps} alpha=7 "
+          f"beta={beta} final_vcycles=1 seed=0")
+    static, w_static, _ = drive("static", ImpartConfig(sched="static",
+                                                       **common))
+    live, w_live, cohorts = drive("bandit", ImpartConfig(
+        sched="bandit", time_budget_s=w_static, **common))
+    trace = live.sched_trace
+    wire = json.loads(json.dumps(trace.to_json()))
+    replay, w_replay, cohorts_replay = drive("replay", ImpartConfig(
+        sched="bandit", sched_replay=SchedulerTrace.from_json(wire),
+        **common))
+    arms = trace.arm_sequence()
+    mutate_pulls = arms.count("mutate")
+    print(f"[sched] {design} decisions {len(arms)} final_vcycles "
+          f"{trace.final_vcycles} histogram {json.dumps(trace.histogram())}")
+    print(f"[sched] {design} arms {arms}")
+    arm_walls = {}
+    for d in trace.decisions:
+        arm_walls[d.arm] = arm_walls.get(d.arm, 0.0) + d.wall_s
+    print(f"[sched] {design} bandit wall per arm (s, from the trace): "
+          f"{json.dumps(arm_walls)}")
+    print(f"[sched] {design} walls static {w_static!r} bandit {w_live!r} "
+          f"replay {w_replay!r}; cuts static {static.cut!r} bandit "
+          f"{live.cut!r} replay {replay.cut!r}; mutate pulls {mutate_pulls}, "
+          f"of which re-partitioned a cohort: {cohorts} (replay "
+          f"{cohorts_replay})")
+    if not (np.array_equal(replay.part, live.part) and replay.cut == live.cut
+            and replay.sched_trace.arm_sequence() == arms
+            and replay.sched_trace.final_vcycles == trace.final_vcycles):
+        raise AssertionError("the replayed bandit run differs from the live "
+                             "one")
+    print(f"[sched] {design} replay == live: partition, cut, arm sequence "
+          "and final V-cycles bit-equal")
+    missing = [n for n in must_launch if path_total.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"sched path: kernels never launched: "
+                             f"{missing}")
+    return total
+
+
+_COST_CHILD = """
+import json, sys, time
+import torch
+from repro_torch.core import impart, mutate
+from repro_torch.core.impart import ImpartConfig, impart_partition
+from repro_torch.data.hypergraphs import ispd_like
+spans = {"mutation": 0.0, "cohorts": 0}
+inner, cohort = impart.mutate_population, mutate.vcycle_population
+
+def timed(*a, **kw):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        return inner(*a, **kw)
+    finally:
+        torch.cuda.synchronize()
+        spans["mutation"] += time.perf_counter() - t
+
+def counted(*a, **kw):
+    spans["cohorts"] += 1
+    return cohort(*a, **kw)
+
+impart.mutate_population, mutate.vcycle_population = timed, counted
+hg = ispd_like("ibm01_like", 1.0)
+cfg = ImpartConfig(k=16, eps=0.03, alpha=7, beta=7, seed=0)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+res = impart_partition(hg, cfg, device="cuda")
+torch.cuda.synchronize()
+spans["wall"] = time.perf_counter() - t0
+spans["cut"] = res.cut
+print("[cost] " + json.dumps(spans), flush=True)
+"""
+
+
+def run_repair_cost(parent_src: str) -> None:
+    """What the fixed-order sums of mutation's reweighted rows cost: the
+    static memetic run of the ``sched`` phase (ibm01_like, k 16, the
+    reference defaults, seed 0) with its mutation seconds, in child
+    processes on the package at ``parent_src`` (a tree before the repair,
+    whose card sums use ``index_add_``) and on this one, in the order
+    parent, this, this, parent."""
+    here = os.path.join(ROOT, "src")
+    for label, src in (("parent", parent_src), ("this", here),
+                       ("this", here), ("parent", parent_src)):
+        proc = subprocess.run([sys.executable, "-c", _COST_CHILD],
+                              capture_output=True, text=True, cwd=ROOT,
+                              env=dict(os.environ, PYTHONPATH=src),
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"repair-cost run on {src} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("[cost] ")][-1]
+        print(f"[cost] ibm01_like k=16 static memetic, {label} ({src}): "
+              f"{line[7:]}")
 
 
 def profile_main_path(design: str, k: int, eps: float = 0.03,
@@ -703,7 +1262,7 @@ def main() -> int:
     phases = PHASES
     for arg in sys.argv[1:]:
         if arg.startswith("--phases="):
-            phases = tuple(arg.split("=", 1)[1].split(","))
+            phases = tuple(p for p in arg.split("=", 1)[1].split(",") if p)
     unknown = set(phases) - set(PHASES)
     if unknown:
         print(f"chip_smoke: unknown phases {sorted(unknown)}",
@@ -716,6 +1275,9 @@ def main() -> int:
         check_gain_one_kernels(report, dev)
         check_rating_kernel(report, dev)
         check_rating_batch_kernel(report, dev)
+        check_connectivity_kernels(report, dev)
+        check_embedding_bag_kernel(report, dev)
+        check_fixed_order_sums(dev)
     if "parity" in phases:
         check_small_parity()
     launches = {name: 0 for name in KERNEL_META}
@@ -744,10 +1306,20 @@ def main() -> int:
         for design, k, must in (("ibm08_like", 64, ("gain_stream_one",)),
                                 ("ibm01_like", 16, ("gain_table_one",))):
             add(run_cli(design, k, must))
+    if "ops" in phases:
+        add(run_ops_path(("connectivity", "cutsize", "embedding_bag")))
+    if "sched" in phases:
+        # #8 comes from the phase's card-side cut checks, which fail
+        # unless they launch it
+        add(run_sched_path("ibm01_like", 16, ("gain_table",
+                                              "rating_segment_sum")))
     if "--profile" in sys.argv[1:]:
         for design, k in (("ibm08_like", 64), ("ibm01_like", 16)):
             profile_main_path(design, k)
         trace_main_path("ibm08_like", 64)
+    for arg in sys.argv[1:]:
+        if arg.startswith("--repair-cost="):
+            run_repair_cost(os.path.abspath(arg.split("=", 1)[1]))
     if set(phases) != set(PHASES):
         print(f"[smoke] ran phases {list(phases)} only: no result line")
         return 3

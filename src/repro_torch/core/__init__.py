@@ -1,8 +1,9 @@
 """IMPart core of the port: data structures, metrics, refinement,
-coarsening, the memetic operators, the baselines and the static driver
-(counterpart of ``repro.core``).  Unlike ``repro.core``, the package
-does not re-export the functions ``recombine`` and ``vcycle``, which
-would hide the modules of the same names."""
+coarsening, the memetic operators, the operator scheduler, the
+baselines and the driver (counterpart of ``repro.core``).  Unlike
+``repro.core``, the package does not re-export the functions
+``recombine`` and ``vcycle``, which would hide the modules of the same
+names."""
 from .hypergraph import (Hypergraph, HypergraphArrays, HierarchyArrays,
                          contract, contract_arrays, project_partition)
 from .coarsen import coarsen, recombination_thresholds, Hierarchy, Level
@@ -14,6 +15,8 @@ from .baselines import (multilevel_partition, multilevel_best_of,
                         external_memetic, MultilevelResult)
 from .recombine import ring_recombination, overlay_clustering
 from .mutate import mutate_population, mutate_path, similarity_sets
+from .scheduler import (OperatorScheduler, SchedulerDecision,
+                        SchedulerTrace, sched_path, resolve_sched)
 from .vcycle import vcycle_population
 from . import metrics, refine, ilp
 
@@ -29,6 +32,7 @@ __all__ = [
     "MultilevelResult",
     "ring_recombination", "overlay_clustering",
     "mutate_population", "mutate_path", "similarity_sets",
-    "vcycle_population",
+    "OperatorScheduler", "SchedulerDecision", "SchedulerTrace",
+    "sched_path", "resolve_sched", "vcycle_population",
     "metrics", "refine", "ilp",
 ]

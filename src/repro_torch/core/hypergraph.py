@@ -243,7 +243,9 @@ class HypergraphArrays:
     ``m_pad - 1`` (zero weight).  ``n``/``m`` are the true counts (host
     ints).  ``incident`` is the optional dense [n_pad, D_pad] int32
     incident-edge layout (pad = -1) the gain kernels read; None when no
-    kernel path is reachable.
+    kernel path is reachable.  ``pin_sort`` caches the pins sorted by
+    vertex (``metrics.pins_by_vertex``), built once per level for the
+    card's fixed-order sums.
     """
 
     pin_vertex: torch.Tensor      # [P_pad] int32, padded -> n_pad - 1
@@ -254,6 +256,8 @@ class HypergraphArrays:
     n: int
     m: int
     incident: Optional[torch.Tensor] = None
+    pin_sort: Optional[Tuple[torch.Tensor, torch.Tensor]] = \
+        dataclasses.field(default=None, repr=False, compare=False)
 
     # -- derived sizes -------------------------------------------------------
     @property
@@ -479,9 +483,9 @@ def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new,
     through the same edge map as the structural weights, and a third
     value ``ew_pop_new`` [alpha, m_pad] is returned.  The rows are
     reweighted (non-integer) weights, so their merged sums hold to the
-    reference within rounding, not bit for bit; on the card
-    ``index_add_`` adds with atomics, so their last bits may also vary
-    between runs.
+    reference within rounding, not bit for bit.  On the card the merged
+    sums go through the rating kernel's fixed-order segment sum (the
+    parallel-edge groups are sorted), so two runs give the same bits.
     """
     n_pad, m_pad, p_pad = hga.n_pad, hga.m_pad, hga.p_pad
     dev = hga.device
@@ -583,10 +587,17 @@ def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new,
     # per-member rows ride the structural edge map: same parallel-edge
     # groups, survivors and dense renumbering
     alpha = ew_pop.shape[0]
-    gw_r = torch.zeros((alpha, m_pad), dtype=torch.float32,
-                       device=dev).index_add_(
-        1, grp, torch.where(alive_s[None], ew_pop[:, eo], 0.0))
+    rows = torch.where(alive_s[None], ew_pop[:, eo], 0.0)
+    # ``grp`` ascends, so the group sums are a sorted-segment sum: the
+    # rating kernel adds each group in a fixed order, where ``index_add_``
+    # would add the real-valued rows with atomics on the card (its plain
+    # version on the CPU adds in ``index_add_``'s order)
+    from repro_torch.kernels import ops
+    gw_r = ops.rating_segment_sum_batch(rows.contiguous(),
+                                        grp.to(torch.int32), m_pad)
     merged_r = torch.where(keep_edge[None], gw_r[:, grp_of], 0.0)
+    # every kept edge receives one value and the ghost only zeros: exact
+    # in any order
     ew_new = torch.zeros((alpha, m_pad), dtype=torch.float32,
                          device=dev).index_add_(1, tgt, merged_r)
     return coarse, p_h, ew_new

@@ -14,7 +14,13 @@ sums in any order: the population functions here are bit-equal to the
 reference's vmapped ones, whatever path assembles the gains.  The one
 exception is mutation's per-member reweighting (``ew_pop``, DESIGN.md
 §10): its weights ``w_e * (1 + mu * C(e))`` are not integers, so
-weighted cuts and gains hold to the reference within rounding.
+weighted cuts and gains hold to the reference within rounding.  On the
+card ``index_add_`` would add those with atomics, in an order that
+changes between runs; so they are summed in a fixed order instead, the
+rating kernel's sorted-segment sum over the pins sorted by vertex
+(``pins_by_vertex``), and two runs give the same bits.  On the CPU that
+sum's plain version adds each vertex's pins in pin order, as
+``index_add_`` did there, so the CPU's bits are those of ``index_add_``.
 """
 from __future__ import annotations
 
@@ -149,12 +155,32 @@ def _edge_gain_terms(hga: HypergraphArrays, phi: torch.Tensor,
     [..., m_pad, k]: becomes_internal [..., m_pad, k] and was_internal
     [..., m_pad] (f32).  ``ew_pop`` [alpha, m_pad] replaces the shared
     edge weights by each member's own row."""
-    sizes = hga.edge_sizes[:, None]
-    w = (hga.edge_weights if ew_pop is None else ew_pop)[..., None]
-    becomes_internal = torch.where(phi == sizes - 1, w, 0.0)
-    was_internal = torch.where((phi == sizes) & (sizes > 0), w,
-                               0.0).sum(-1)
-    return becomes_internal, was_internal
+    from repro_torch.kernels import ops
+    return ops.edge_terms(phi, hga.edge_sizes,
+                          hga.edge_weights if ew_pop is None else ew_pop)
+
+
+def pins_by_vertex(hga: HypergraphArrays):
+    """``(order, vertex)``: the pin permutation that sorts ``pin_vertex``
+    ascending (stable) and the int32 vertex ids in that order, cached on
+    ``hga`` (the structure is fixed per level).  A CUDA graph must not
+    build it during capture: callers that capture build it first."""
+    if hga.pin_sort is None:
+        order = torch.argsort(hga.pin_vertex, stable=True)
+        hga.pin_sort = (order, hga.pin_vertex[order].contiguous())
+    return hga.pin_sort
+
+
+def _vertex_sums(hga: HypergraphArrays,
+                 pin_rows: torch.Tensor) -> torch.Tensor:
+    """[R, n_pad] sums of the per-pin rows ``pin_rows[R, P]`` (pin order of
+    ``hga``) over each vertex's pins, in a fixed order: the pins sorted by
+    vertex through the batched rating kernel, launched on the current
+    stream with no host sync (capturable in a CUDA graph)."""
+    from repro_torch.kernels import ops
+    order, vertex = pins_by_vertex(hga)
+    return ops.rating_segment_sum_batch(pin_rows[:, order].contiguous(),
+                                        vertex, hga.n_pad)
 
 
 def _gain_segsum(hga: HypergraphArrays, phi: torch.Tensor,
@@ -164,6 +190,15 @@ def _gain_segsum(hga: HypergraphArrays, phi: torch.Tensor,
     becomes_internal, was_internal = _edge_gain_terms(hga, phi, ew_pop)
     pe, pv = hga.pin_edge.long(), hga.pin_vertex.long()
     alpha, _, k = phi.shape
+    if ew_pop is not None:
+        # real-valued member rows: (member, column) rows of
+        # becomes_internal, then the members' was_internal rows, summed
+        # per vertex in one fixed-order launch
+        rows = torch.cat([becomes_internal.permute(0, 2, 1)[:, :, pe]
+                          .reshape(alpha * k, -1), was_internal[:, pe]])
+        sums = _vertex_sums(hga, rows)
+        g = sums[: alpha * k].reshape(alpha, k, hga.n_pad).transpose(1, 2)
+        return g - sums[alpha * k:, :, None]
     g = torch.zeros((alpha, hga.n_pad, k), dtype=torch.float32,
                     device=phi.device).index_add_(1, pv,
                                                   becomes_internal[:, pe])
@@ -199,13 +234,27 @@ def _gain_compact(hga: HypergraphArrays, phi: torch.Tensor, k: int,
     rows = (torch.arange(alpha, device=dev)[:, None] * hga.n_pad
             + pv[None, :]) * (k + 1)                         # [a, P]
     wp = w[:, pe].reshape(-1)
-    g = torch.zeros(alpha * hga.n_pad * (k + 1), dtype=torch.float32,
-                    device=dev)
-    g.index_add_(0, (rows + c1[:, pe]).reshape(-1), wp)
-    g.index_add_(0, (rows + c2[:, pe]).reshape(-1), wp)
+    size = alpha * hga.n_pad * (k + 1)
+    s1, s2 = (rows + c1[:, pe]).reshape(-1), (rows + c2[:, pe]).reshape(-1)
+    if ew_pop is not None:
+        # real-valued member rows: a stable sort of the (member, vertex,
+        # column) slots makes the scatter a sorted-segment sum in a fixed
+        # order
+        from repro_torch.kernels import ops
+        if size >= 2 ** 31:
+            raise ValueError("compact gain slots exceed the rating "
+                             "kernel's int32 segment ids")
+        srt, perm = torch.sort(torch.cat([s1, s2]), stable=True)
+        g = ops.rating_segment_sum(torch.cat([wp, wp])[perm].contiguous(),
+                                   srt.to(torch.int32), size)
+        l = _vertex_sums(hga, was_internal[:, pe])
+    else:
+        g = torch.zeros(size, dtype=torch.float32, device=dev)
+        g.index_add_(0, s1, wp)
+        g.index_add_(0, s2, wp)
+        l = torch.zeros((alpha, hga.n_pad), dtype=torch.float32,
+                        device=dev).index_add_(1, pv, was_internal[:, pe])
     g = g.reshape(alpha, hga.n_pad, k + 1)[..., :k]
-    l = torch.zeros((alpha, hga.n_pad), dtype=torch.float32,
-                    device=dev).index_add_(1, pv, was_internal[:, pe])
     return g - l[..., None]
 
 

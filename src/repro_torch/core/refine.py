@@ -364,6 +364,11 @@ def _fm_pass_population_impl(hga: HypergraphArrays, parts: torch.Tensor,
     locked = torch.zeros((alpha, n_pad), dtype=torch.bool, device=dev)
     blocks = torch.arange(k, device=dev)
     feasible_slack = cap + 1e-6
+    if edge_weights_pop is not None:
+        # the fixed-order gain sums of member rows read the level's pins
+        # sorted by vertex: build them here, never inside the graph's
+        # capture
+        metrics.pins_by_vertex(hga)
 
     def step(state):
         part, phi, bw, locked, cur_cut, best_cut, best_part, _ = state
@@ -418,15 +423,20 @@ def _run_fm_steps(step, state: tuple, steps: int) -> tuple:
     the host took about 1.4 ms a step; so ``FM_FLAG_EVERY`` steps are
     captured once per pass as one CUDA graph over the state tensors,
     which the graph updates in place, and replayed.  The graph runs the
-    same kernels in the same order, so the result is the eager one."""
+    same kernels in the same order, so the result is the eager one.  A
+    kernel wrapper counts its launch when the capture records it, where
+    nothing runs; those counts are moved to the replays, each of which
+    runs every recorded launch once."""
+    from repro_torch.kernels import ops
     t = 0
     graph = None
     while t < steps:
         n = min(FM_FLAG_EVERY, steps - t)
         if state[0].is_cuda and n == FM_FLAG_EVERY:
             if graph is None:
-                graph = _capture_fm_steps(step, state, n)
+                graph, recorded = _capture_fm_steps(step, state, n)
             graph.replay()
+            ops.add_launch_counts(recorded)
         else:
             for _ in range(n):
                 state = step(state)
@@ -438,7 +448,10 @@ def _run_fm_steps(step, state: tuple, steps: int) -> tuple:
 
 def _capture_fm_steps(step, state: tuple, n: int):
     """A CUDA graph of ``n`` consecutive ``step`` calls that reads the
-    tensors of ``state`` and writes the result back into them."""
+    tensors of ``state`` and writes the result back into them, and the
+    kernel launches it recorded, by wrapper name; those are taken off the
+    wrappers' counters, since the capture ran none of them."""
+    from repro_torch.kernels import ops
     dev = state[0].device
     side = torch.cuda.Stream(dev)
     side.wait_stream(torch.cuda.current_stream(dev))
@@ -450,6 +463,7 @@ def _capture_fm_steps(step, state: tuple, n: int):
         # load every kernel once outside the capture, on a scratch state
         step(tuple(x.clone() for x in state))
         side.synchronize()
+        before = ops.launch_counts()
         graph.capture_begin()
         try:
             out = state
@@ -460,7 +474,11 @@ def _capture_fm_steps(step, state: tuple, n: int):
         finally:
             graph.capture_end()
     torch.cuda.current_stream(dev).wait_stream(side)
-    return graph
+    recorded = {name: c - before[name]
+                for name, c in ops.launch_counts().items()
+                if c != before[name]}
+    ops.add_launch_counts({name: -c for name, c in recorded.items()})
+    return graph, recorded
 
 
 def _fm_pass_impl(hga: HypergraphArrays, part: torch.Tensor, k: int,

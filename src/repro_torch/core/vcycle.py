@@ -17,6 +17,7 @@ member (populations of one) as the per-member reference.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -27,7 +28,7 @@ from .hypergraph import Hypergraph
 from .dcoarsen import build_hierarchy, population_coarsen
 from . import refine as refine_mod
 from . import metrics
-from .refine import _later_slice
+from .scheduler import REFINE_ARMS, SCHED_VCYCLE_PHASE
 
 
 def vcycle(hg: Hypergraph, part: np.ndarray, k: int, eps: float,
@@ -44,10 +45,13 @@ def vcycle(hg: Hypergraph, part: np.ndarray, k: int, eps: float,
 
     ``eval_weights``: if given, the returned cut is measured with these
     edge weights.  Never returns a worse partition than the input
-    (elitism on that cut).  ``scheduler`` (the bandit operator schedule)
-    belongs to a later slice and raises."""
-    if scheduler is not None:
-        _later_slice("vcycle(scheduler=...)", "operator scheduler")
+    (elitism on that cut).
+
+    ``scheduler``: the ``OperatorScheduler`` of a bandit-scheduled
+    impart run.  Each level's refinement tier ({lp, lp_fm}) is then
+    chosen and observed through it, under the context phase
+    ``SCHED_VCYCLE_PHASE``, so replay covers the final V-cycles too.
+    ``None`` is the static pipeline."""
     dev = resolve_device(device)
     part = np.asarray(part, np.int32)
     hier = build_hierarchy(hg, k, seed=seed, restrict_part=part,
@@ -56,15 +60,37 @@ def vcycle(hg: Hypergraph, part: np.ndarray, k: int, eps: float,
     num = hier.num_levels
     cur = torch.as_tensor(hier.level_part(num - 1),
                           device=dev).to(torch.int32)[None, :]
+    prev_best = None
     for li in range(num - 1, -1, -1):
         if li < num - 1:
             cur = hier.project_pop(cur, li + 1)
         hga = hier.level_arrays(li)
-        cur, _ = refine_mod.refine_population(hga, cur, k, eps,
-                                              fm_node_limit=fm_node_limit,
-                                              shard=shard,
-                                              model_shard=model_shard,
-                                              device=dev)
+        if scheduler is None:
+            cur, _ = refine_mod.refine_population(
+                hga, cur, k, eps, fm_node_limit=fm_node_limit, shard=shard,
+                model_shard=model_shard, device=dev)
+            continue
+        if prev_best is None:
+            # the exact projection keeps the cut, so only the coarsest
+            # level needs a measurement before its refinement
+            prev_best = float(metrics.cutsize(
+                hga, refine_mod.pad_part(cur[0][: hga.n_pad], hga.n_pad),
+                k))
+        arm = scheduler.choose(li, SCHED_VCYCLE_PHASE, REFINE_ARMS)
+        t_arm = time.perf_counter()
+        if arm == "lp":
+            cur, rc = refine_mod.lp_refine_population(
+                hga, cur, k, eps, shard=shard, model_shard=model_shard)
+        else:
+            cur, rc = refine_mod.refine_population(
+                hga, cur, k, eps, fm_node_limit=fm_node_limit, shard=shard,
+                model_shard=model_shard, device=dev)
+        # ``rc`` are host values read back from the card: the wall
+        # below ends in a host sync
+        new_best = float(np.min(np.asarray(rc)))
+        scheduler.observe(li, SCHED_VCYCLE_PHASE, arm, prev_best - new_best,
+                          time.perf_counter() - t_arm)
+        prev_best = new_best
 
     out = cur[0].cpu().numpy()[: hg.n]
     # elitism on the true (or the given) objective

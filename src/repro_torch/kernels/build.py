@@ -26,7 +26,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gain", "rating")
+SOURCES = ("gain", "rating", "connectivity", "embedding_bag")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

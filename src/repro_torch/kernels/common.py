@@ -51,3 +51,9 @@ RATING_CHUNK = 32
 #: Threads of one rating block.
 RATING_BLOCK_THREADS = 256
 
+#: Largest k the connectivity and cut kernels take: they OR one bit per
+#: block into a uint32 mask per edge and count its bits with ``__popc``,
+#: so k is bounded by the mask's 32 bits.  ``ops.connectivity`` and
+#: ``ops.cutsize`` route larger k to the plain versions, as the
+#: reference's ops do.
+KERNEL_MAX_K = 32

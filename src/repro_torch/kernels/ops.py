@@ -31,17 +31,28 @@ kernel paths only where a layout exists); ``auto``/unset means the table
 above.  ``REPRO_RATING_PATH=kernel|plain`` forces the rating
 aggregation, scalar and batched alike; auto routes every round to the
 kernels (on CPU tensors the kernel wrappers run their plain versions).
+
+Public ops
+----------
+The rest of ``repro.kernels.ops``'s public API, with the same names and
+arguments: the host layout converters ``edge_pin_matrix`` and
+``vertex_incidence_matrix``, ``edge_terms``, and the kernel-or-plain ops
+``connectivity``, ``cutsize``, ``gain_gather``, ``gain_gather_batch`` and
+``embedding_bag`` (``use_kernel=False`` runs the plain version).
 """
 from __future__ import annotations
 
 import os
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.env import warn_env_once
+from . import connectivity as _connectivity
+from . import embedding_bag as _embedding_bag
 from . import gain, rating, ref
-from .common import GAIN_WARP_MAX_K, SEGSUM_MAX_K
+from .common import GAIN_WARP_MAX_K, KERNEL_MAX_K, SEGSUM_MAX_K
 
 GAIN_PATHS = ("table", "stream", "segsum", "compact")
 RATING_PATHS = ("kernel", "plain")
@@ -54,6 +65,9 @@ KERNELS = {
     "rating_segment_sum_batch": rating.rating_segment_sum_batch,
     "gain_table_one": gain.gain_gather,
     "gain_stream_one": gain.gain_stream,
+    "connectivity": _connectivity.connectivity,
+    "cutsize": _connectivity.cutsize,
+    "embedding_bag": _embedding_bag.embedding_bag,
 }
 
 
@@ -65,6 +79,13 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (by kernel name) to the wrappers' counters: the
+    launches of a CUDA graph's replay, which runs no wrapper."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
 
 
 def _gain_env() -> str:
@@ -160,3 +181,105 @@ def rating_segment_sum_batch(vals: torch.Tensor, segs: torch.Tensor,
     if rating_path(vals.shape[-1]) == "kernel":
         return rating.rating_segment_sum_batch(vals, segs, num_segments)
     return ref.rating_segment_sum_batch_ref(vals, segs, num_segments)
+
+
+# --------------------------------------------------------------------------
+# host layout converters
+# --------------------------------------------------------------------------
+def edge_pin_matrix(hg, block_m: int = 512, lane_pad: int = 8) -> np.ndarray:
+    """CSR -> padded [M_pad, S_pad] int32 pin matrix (pad = -1): M rounded
+    up to a multiple of ``block_m``, S to a power of two (>= ``lane_pad``);
+    byte-equal to the reference's."""
+    from repro_torch.core.hypergraph import _round_pow2
+    sizes = hg.edge_sizes()
+    s_pad = max(int(_round_pow2(int(sizes.max()) if hg.m else 1, lane_pad)),
+                lane_pad)
+    m_pad = ((hg.m + block_m - 1) // block_m) * block_m
+    out = np.full((m_pad, s_pad), -1, np.int32)
+    rows = hg.pin_edge_ids()
+    cols = (np.arange(hg.num_pins, dtype=np.int64)
+            - np.repeat(hg.edge_offsets[:-1], sizes))
+    out[rows, cols] = hg.pins
+    return out
+
+
+def vertex_incidence_matrix(hg, block_n: int = 256,
+                            lane_pad: int = 8) -> np.ndarray:
+    """Dual CSR -> padded [N_pad, D_pad] int32 incident-edge matrix (pad =
+    -1), N rounded up to a multiple of ``block_n``; the cached layout of
+    ``hg.incidence_matrix``."""
+    n_rows = ((hg.n + block_n - 1) // block_n) * block_n
+    return hg.incidence_matrix(max(n_rows, block_n), lane_pad=lane_pad)
+
+
+# --------------------------------------------------------------------------
+# public ops (kernel or plain version, same signature)
+# --------------------------------------------------------------------------
+def connectivity(pins: torch.Tensor, part: torch.Tensor, k: int,
+                 use_kernel: bool = True) -> torch.Tensor:
+    """lambda(e) [M] int32 of the pin matrix ``pins[M, S]``.  Routed as the
+    reference routes it: kernel #7 when ``use_kernel`` and
+    ``k <= KERNEL_MAX_K`` (a uint32 block mask), else the plain version on
+    either device.  That is the reference's routing by k, not a fallback:
+    on a CUDA tensor the kernel path launches or raises."""
+    if use_kernel and k <= KERNEL_MAX_K:
+        return _connectivity.connectivity(pins, part, k)
+    return ref.connectivity_ref(pins, part, k)
+
+
+def cutsize(pins: torch.Tensor, part: torch.Tensor,
+            edge_weights: torch.Tensor, k: int,
+            use_kernel: bool = True) -> torch.Tensor:
+    """f32 scalar cut of the pin matrix, routed like ``connectivity``
+    (kernel #8 at ``k <= KERNEL_MAX_K``)."""
+    if use_kernel and k <= KERNEL_MAX_K:
+        return _connectivity.cutsize(pins, part, edge_weights, k)
+    return ref.cutsize_ref(pins, part, edge_weights, k)
+
+
+def edge_terms(phi: torch.Tensor, edge_sizes: torch.Tensor,
+               edge_weights: torch.Tensor):
+    """Per-edge FM terms from Phi [..., M, k] (stage 1 of the gain
+    pipeline): ``(becomes_internal [..., M, k], was_internal [..., M])``;
+    ``edge_weights`` is [M], or [alpha, M] with one row per member."""
+    sizes = edge_sizes[:, None]
+    w = edge_weights[..., None]
+    becomes_internal = torch.where(phi == sizes - 1, w, 0.0)
+    was_internal = torch.where((phi == sizes) & (sizes > 0), w, 0.0).sum(-1)
+    return becomes_internal, was_internal
+
+
+def gain_gather(incident: torch.Tensor, becomes_internal: torch.Tensor,
+                was_internal: torch.Tensor,
+                use_kernel: bool = True) -> torch.Tensor:
+    """One-member gain assembly [N, k]: the ``table`` kernel (#5) at
+    ``k <= GAIN_WARP_MAX_K``, the ``stream`` kernel (#6) above it, or the
+    plain version with ``use_kernel=False``."""
+    if use_kernel:
+        k = becomes_internal.shape[-1]
+        return gain_assemble(incident, becomes_internal, was_internal,
+                             "table" if k <= GAIN_WARP_MAX_K else "stream")
+    return ref.gain_gather_ref(incident, becomes_internal, was_internal)
+
+
+def gain_gather_batch(incident: torch.Tensor, becomes_internal: torch.Tensor,
+                      was_internal: torch.Tensor,
+                      use_kernel: bool = True) -> torch.Tensor:
+    """Population gain assembly [alpha, N, k] in one launch (#1 at
+    ``k <= GAIN_WARP_MAX_K``, #2 above it), or the plain version."""
+    if use_kernel:
+        k = becomes_internal.shape[-1]
+        return gain_assemble_batch(incident, becomes_internal, was_internal,
+                                   "table" if k <= GAIN_WARP_MAX_K
+                                   else "stream")
+    return ref.gain_gather_batch_ref(incident, becomes_internal,
+                                     was_internal)
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                  combiner: str = "sum",
+                  use_kernel: bool = True) -> torch.Tensor:
+    """EmbeddingBag [B, D] (kernel #9), or the plain version."""
+    if use_kernel:
+        return _embedding_bag.embedding_bag(table, indices, combiner)
+    return ref.embedding_bag_ref(table, indices, combiner)

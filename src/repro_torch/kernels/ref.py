@@ -5,8 +5,10 @@ the gain kernels' yardstick.
 Every CPU run uses these, and on the card each kernel is held against
 its plain version on the same inputs.  Layouts match the kernels:
 ``incident[N, D]`` int32 edge ids (pad = -1) shared by all members,
-per-member edge tables ``bi[alpha, M, k]`` / ``wi[alpha, M]``, and
-sorted segment ids for the rating sum.
+per-member edge tables ``bi[alpha, M, k]`` / ``wi[alpha, M]``, sorted
+segment ids for the rating sum, the padded pin matrix ``pins[M, S]``
+(pad = -1) for connectivity and cut, and bag ids ``idx[B, L]`` (pad =
+-1) for the embedding bag.
 """
 from __future__ import annotations
 
@@ -89,6 +91,40 @@ def rating_segment_sum_batch_ref(vals: torch.Tensor, segs: torch.Tensor,
                         for row in vals]) if vals.shape[0] else \
         torch.zeros((0, num_segments), dtype=torch.float32,
                     device=vals.device)
+
+
+def connectivity_ref(pins: torch.Tensor, part: torch.Tensor,
+                     k: int) -> torch.Tensor:
+    """lambda(e) [M] int32: the number of distinct blocks among each
+    edge's valid pins (one-hot form; a pin id >= N reads part[N - 1], a
+    block id outside [0, k) counts for no block)."""
+    valid = pins >= 0
+    p = part[pins.clamp(0, part.shape[0] - 1).long()]             # [M, S]
+    onehot = ((p[..., None] == torch.arange(k, device=pins.device))
+              & valid[..., None])                                 # [M, S, k]
+    return onehot.any(dim=1).sum(dim=-1).to(torch.int32)
+
+
+def cutsize_ref(pins: torch.Tensor, part: torch.Tensor,
+                edge_weights: torch.Tensor, k: int) -> torch.Tensor:
+    """f32 scalar: the weight of the edges with lambda(e) > 1."""
+    lam = connectivity_ref(pins, part, k)
+    return torch.where(lam > 1, edge_weights, 0.0).sum()
+
+
+def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
+                      combiner: str = "sum") -> torch.Tensor:
+    """EmbeddingBag: ``out[b] = sum_l table[idx[b, l]]`` over the ids
+    >= 0 (an id >= R reads row R - 1), summed in f32; ``mean`` then
+    divides by L (pads counted).  Returns [B, D] in the table's dtype."""
+    if combiner not in ("sum", "mean"):
+        raise ValueError(f"unknown combiner {combiner!r}")
+    valid = (indices >= 0)[..., None]                             # [B, L, 1]
+    rows = table[indices.clamp(0, table.shape[0] - 1).long()].float()
+    out = (rows * valid).sum(dim=1)
+    if combiner == "mean":
+        out = out / indices.shape[1]
+    return out.to(table.dtype)
 
 
 def gain_gather_embedding_bag(incident: torch.Tensor,

@@ -106,22 +106,32 @@ def test_impart_default_config_cut_within_tolerance(small_hg):
     assert 0.8 <= ratio <= 1.25, cuts
 
 
-def test_bandit_schedule_still_raises(tiny_hg, monkeypatch):
-    """The bandit schedule belongs to the scheduler slice, whether asked
-    for by config, by replay or by ``REPRO_SCHED``."""
-    for cfg in (dict(sched="bandit"), dict(sched_replay=object())):
-        with pytest.raises(NotImplementedError, match="operator scheduler"):
-            impart_partition(port_hg(tiny_hg), ImpartConfig(k=2, **cfg),
-                             device="cpu")
+def test_bandit_schedule_routing(tiny_hg, monkeypatch):
+    """The bandit schedule runs whether asked for by config or by
+    ``REPRO_SCHED``, and returns its decision trace; an explicit
+    ``sched="static"`` overrides the environment."""
+    monkeypatch.delenv("REPRO_SCHED", raising=False)
+    cfg = dict(k=2, alpha=2, beta=1, **SLICE)
+    res = impart_partition(port_hg(tiny_hg), ImpartConfig(sched="bandit",
+                                                          **cfg),
+                           device="cpu")
+    assert res.sched_trace is not None and res.sched_trace.decisions
+    assert all(t[2].startswith("sched:") for t in res.trace[1:])
     monkeypatch.setenv("REPRO_SCHED", "bandit")
-    with pytest.raises(NotImplementedError, match="operator scheduler"):
-        impart_partition(port_hg(tiny_hg), ImpartConfig(k=2), device="cpu")
+    env = impart_partition(port_hg(tiny_hg), ImpartConfig(**cfg),
+                           device="cpu")
+    assert env.sched_trace.arm_sequence() == \
+        res.sched_trace.arm_sequence()
+    static = impart_partition(port_hg(tiny_hg),
+                              ImpartConfig(sched="static", **cfg),
+                              device="cpu")
+    assert static.sched_trace is None
 
 
 @pytest.mark.parametrize("kw", [
-    dict(sched="bandit"), dict(pop_shard="mesh"),
-    dict(pop_shard="chunk"), dict(model_shard="mesh")],
-    ids=["bandit", "pop_mesh", "pop_chunk", "model_mesh"])
+    dict(pop_shard="mesh"), dict(pop_shard="chunk"),
+    dict(model_shard="mesh")],
+    ids=["pop_mesh", "pop_chunk", "model_mesh"])
 def test_later_slice_options_raise(kw, tiny_hg):
     cfg = dict(k=2, alpha=2, **SLICE)
     cfg.update(kw)

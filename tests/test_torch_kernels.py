@@ -4,7 +4,8 @@ On the CPU the port's kernel wrappers run their plain PyTorch versions
 (``repro_torch.kernels.ref``); here those are held against the
 reference's Pallas kernels run as the reference's own tests run them
 (``interpret=True``).  The CUDA kernels themselves are held against the
-same plain versions on the card by ``chip_smoke.py``.
+same plain versions on the card by ``chip_smoke.py`` and by the tests
+marked ``cuda`` here, which skip without a card.
 
 Tolerances: the gain assemblies (population and one-member) are
 compared bit for bit on integer-valued tables (every f32 sum is exact in
@@ -12,6 +13,11 @@ any order).  The rating sums of non-integer values, scalar and batched,
 are compared with rtol=1e-6: the Pallas kernel sums through a one-hot
 matmul and the JAX oracle through XLA's segment-sum, the port in index
 order, so the last bits may differ.  Integer-valued ratings are exact.
+Connectivity is integer arithmetic and compared bit for bit; the cut of
+real weights with rel 1e-5 (the reference's own bar), of integer
+weights exactly; the embedding bag with 1e-5 in f32 and 2e-2 in bf16
+(the port sums in f32 and rounds once, the reference rounds in bf16),
+as in the reference's sweeps.
 """
 import numpy as np
 import pytest
@@ -26,8 +32,12 @@ from repro.kernels.gain import (gain_gather_batch_pallas,
                                 gain_gather_pallas,
                                 gain_stream_batch_pallas,
                                 gain_stream_pallas)
+from repro.kernels import ops as jops
+from repro.kernels.connectivity import connectivity_pallas, cutsize_pallas
+from repro.kernels.embedding_bag import embedding_bag_pallas
 from repro.kernels.rating import rating_scatter_pallas
-from repro_torch.kernels import gain, ops, rating, ref
+from repro_torch.kernels import (build, connectivity, embedding_bag, gain,
+                                 ops, rating, ref)
 
 # (alpha, N, D, M, k): N off the 256-row block, degree-0 rows, k around
 # the warp width
@@ -113,7 +123,8 @@ def test_cpu_wrappers_run_plain_versions_without_launching():
     assert ops.launch_counts() == {
         "gain_table": 0, "gain_stream": 0, "rating_segment_sum": 0,
         "rating_segment_sum_batch": 0, "gain_table_one": 0,
-        "gain_stream_one": 0}
+        "gain_stream_one": 0, "connectivity": 0, "cutsize": 0,
+        "embedding_bag": 0}
 
 
 @pytest.mark.parametrize("forced", ["table", "stream", "segsum", "compact",
@@ -221,3 +232,215 @@ def test_rating_batch_ref_matches_jax(alpha, c, s):
                                          torch.from_numpy(segs), s),
         jref.rating_segment_sum_batch_ref(jnp.asarray(ivals),
                                           jnp.asarray(segs), s))
+
+
+# --------------------------------------------------------------------------
+# connectivity, cut size and embedding bag (#7-#9)
+# --------------------------------------------------------------------------
+def _pins_part(m, s, n, k, seed):
+    rng = np.random.default_rng(seed)
+    pins = rng.integers(-1, n, size=(m, s)).astype(np.int32)
+    part = rng.integers(0, k, size=n).astype(np.int32)
+    return rng, pins, part
+
+
+# the reference's sweeps (tests/test_kernels.py), plus an odd edge count
+@pytest.mark.parametrize("m,s,n,k", [
+    (512, 8, 300, 2), (512, 16, 1000, 8), (1024, 32, 4096, 32),
+    (512, 128, 512, 17), (130, 8, 300, 5)])
+def test_connectivity_ref_matches_jax(m, s, n, k):
+    _, pins, part = _pins_part(m, s, n, k, seed=m + s + k)
+    jargs = (jnp.asarray(pins), jnp.asarray(part), k)
+    got = ref.connectivity_ref(torch.from_numpy(pins),
+                               torch.from_numpy(part), k)
+    assert got.dtype == torch.int32
+    assert_bit_equal(got, jref.connectivity_ref(*jargs))
+    assert_bit_equal(got, connectivity_pallas(*jargs, interpret=True))
+    assert_bit_equal(ops.connectivity(torch.from_numpy(pins),
+                                      torch.from_numpy(part), k), got)
+
+
+@pytest.mark.parametrize("m,s,n,k,block_m", [
+    (512, 8, 256, 4, 512), (2048, 16, 2048, 16, 512), (512, 8, 256, 4, 256),
+    (130, 8, 300, 5, 512)])
+def test_cutsize_ref_matches_jax(m, s, n, k, block_m):
+    rng, pins, part = _pins_part(m, s, n, k, seed=m * k)
+    w = rng.random(m).astype(np.float32)
+    args = (torch.from_numpy(pins), torch.from_numpy(part))
+    jargs = (jnp.asarray(pins), jnp.asarray(part))
+    got = ref.cutsize_ref(*args, torch.from_numpy(w), k)
+    assert got.shape == () and got.dtype == torch.float32
+    want = cutsize_pallas(*jargs, jnp.asarray(w), k, block_m=block_m,
+                          interpret=True)
+    assert float(got) == pytest.approx(float(want), rel=1e-5)
+    assert float(got) == pytest.approx(
+        float(jref.cutsize_ref(*jargs, jnp.asarray(w), k)), rel=1e-5)
+    # integer weights: exact
+    iw = rng.integers(0, 9, m).astype(np.float32)
+    assert float(ref.cutsize_ref(*args, torch.from_numpy(iw), k)) == \
+        float(jref.cutsize_ref(*jargs, jnp.asarray(iw), k))
+
+
+@pytest.mark.parametrize("r,d,b,l,dtype,combiner", [
+    (100, 16, 8, 4, "float32", "sum"),
+    (1000, 64, 32, 1, "float32", "sum"),
+    (500, 32, 16, 8, "float32", "mean"),
+    (100, 128, 8, 2, "bfloat16", "sum"),
+    (300, 36, 7, 26, "bfloat16", "mean")])
+def test_embedding_bag_ref_matches_jax(r, d, b, l, dtype, combiner):
+    rng = np.random.default_rng(r + b)
+    table32 = rng.normal(size=(r, d)).astype(np.float32)
+    idx = rng.integers(-1, r, size=(b, l)).astype(np.int32)
+    jtable = jnp.asarray(table32, getattr(jnp, dtype))
+    table = torch.from_numpy(table32).to(getattr(torch, dtype))
+    got = ref.embedding_bag_ref(table, torch.from_numpy(idx), combiner)
+    assert got.dtype == table.dtype and got.shape == (b, d)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for want in (jref.embedding_bag_ref(jtable, jnp.asarray(idx), combiner),
+                 embedding_bag_pallas(jtable, jnp.asarray(idx),
+                                      combiner=combiner, interpret=True)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+    assert torch.equal(ops.embedding_bag(table, torch.from_numpy(idx),
+                                         combiner), got)
+    with pytest.raises(ValueError, match="combiner"):
+        ops.embedding_bag(table, torch.from_numpy(idx), "max")
+
+
+@pytest.mark.parametrize("maker,design,scale", [
+    ("ispd_like", "ibm01_like", 0.05), ("titan_like", "sparcT1_core_like",
+                                        0.02)])
+def test_layout_converters_byte_equal(maker, design, scale):
+    from repro.data import hypergraphs as jdata
+    from repro_torch.data import hypergraphs as tdata
+    from port_parity import port_hg
+    hg = getattr(jdata, maker)(design, scale=scale)
+    phg = getattr(tdata, maker)(design, scale=scale)
+    for kw in ({}, dict(block_m=128, lane_pad=16)):
+        want = jops.edge_pin_matrix(hg, **kw)
+        got = ops.edge_pin_matrix(phg, **kw)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    want = jops.vertex_incidence_matrix(hg)
+    got = ops.vertex_incidence_matrix(port_hg(hg))
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+
+
+def test_connectivity_routing_by_k(monkeypatch):
+    """k <= KERNEL_MAX_K goes to the kernel wrappers, larger k to the
+    plain versions, as the reference routes; ``use_kernel=False`` always
+    takes the plain versions."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return wrapped
+    monkeypatch.setattr(connectivity, "connectivity",
+                        spy("connectivity", connectivity.connectivity))
+    monkeypatch.setattr(connectivity, "cutsize",
+                        spy("cutsize", connectivity.cutsize))
+    for k, routed in ((32, True), (33, False), (64, False)):
+        _, pins, part = _pins_part(300, 8, 200, k, seed=k)
+        pins_t, part_t = torch.from_numpy(pins), torch.from_numpy(part)
+        w = torch.ones(300)
+        calls.clear()
+        lam = ops.connectivity(pins_t, part_t, k)
+        cut = ops.cutsize(pins_t, part_t, w, k)
+        assert calls == (["connectivity", "cutsize"] if routed else [])
+        assert_bit_equal(lam, jref.connectivity_ref(
+            jnp.asarray(pins), jnp.asarray(part), k))
+        assert float(cut) == float((lam > 1).sum())
+        calls.clear()
+        ops.connectivity(pins_t, part_t, k, use_kernel=False)
+        ops.cutsize(pins_t, part_t, w, k, use_kernel=False)
+        assert calls == []
+
+
+def test_new_cpu_wrappers_run_plain_versions_without_launching():
+    ops.reset_launch_counts()
+    _, pins, part = _pins_part(100, 8, 50, 4, seed=1)
+    pins_t, part_t = torch.from_numpy(pins), torch.from_numpy(part)
+    w = torch.arange(100, dtype=torch.float32)
+    assert_bit_equal(connectivity.connectivity(pins_t, part_t, 4),
+                     ref.connectivity_ref(pins_t, part_t, 4))
+    assert torch.equal(connectivity.cutsize(pins_t, part_t, w, 4),
+                       ref.cutsize_ref(pins_t, part_t, w, 4))
+    table = torch.randn(20, 8)
+    idx = torch.tensor([[0, -1, 19], [3, 3, -1]], dtype=torch.int32)
+    assert torch.equal(embedding_bag.embedding_bag(table, idx, "mean"),
+                       ref.embedding_bag_ref(table, idx, "mean"))
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_gain_ops_use_kernel_flag():
+    """``ops.gain_gather``/``gain_gather_batch``/``edge_terms`` against the
+    reference's ops, with and without the kernel."""
+    inc, bi, wi = _gain_inputs(3, 120, 8, 90, 40, seed=5)
+    args = (torch.from_numpy(inc), torch.from_numpy(bi),
+            torch.from_numpy(wi))
+    want = jops.gain_gather_batch(jnp.asarray(inc), jnp.asarray(bi),
+                                  jnp.asarray(wi), use_kernel=False)
+    for use_kernel in (True, False):
+        assert_bit_equal(ops.gain_gather_batch(*args, use_kernel=use_kernel),
+                         want)
+        assert_bit_equal(ops.gain_gather(args[0], args[1][1], args[2][1],
+                                         use_kernel=use_kernel), want[1])
+    rng = np.random.default_rng(2)
+    phi = rng.integers(0, 4, (50, 6)).astype(np.int32)
+    sizes = rng.integers(0, 5, 50).astype(np.int32)
+    w = rng.integers(1, 4, 50).astype(np.float32)
+    got = ops.edge_terms(torch.from_numpy(phi), torch.from_numpy(sizes),
+                         torch.from_numpy(w))
+    wanted = jops.edge_terms(jnp.asarray(phi), jnp.asarray(sizes),
+                             jnp.asarray(w))
+    for g, x in zip(got, wanted):
+        assert_bit_equal(g, x)
+
+
+@pytest.fixture
+def card():
+    """The CUDA device, or a skip that says what is missing."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run on the card only")
+    try:
+        build.nvcc()
+    except RuntimeError as err:
+        pytest.skip(str(err))
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,s,n,k", [(130, 8, 300, 5), (50_000, 64, 51_000,
+                                                        32)])
+def test_connectivity_kernels_on_card(card, m, s, n, k):
+    rng, pins, part = _pins_part(m, s, n, k, seed=m)
+    pins_t, part_t = (torch.from_numpy(x).to(card) for x in (pins, part))
+    assert_bit_equal(connectivity.connectivity(pins_t, part_t, k),
+                     ref.connectivity_ref(pins_t, part_t, k))
+    iw = torch.from_numpy(rng.integers(0, 9, m).astype(np.float32)).to(card)
+    assert torch.equal(connectivity.cutsize(pins_t, part_t, iw, k),
+                       ref.cutsize_ref(pins_t, part_t, iw, k))
+    w = torch.from_numpy(rng.random(m).astype(np.float32)).to(card)
+    got = connectivity.cutsize(pins_t, part_t, w, k)
+    assert torch.equal(got, connectivity.cutsize(pins_t, part_t, w, k))
+    assert float(got) == pytest.approx(
+        float(ref.cutsize_ref(pins_t, part_t, w, k)), rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,combiner", [("float32", "sum"),
+                                            ("float32", "mean"),
+                                            ("bfloat16", "sum")])
+def test_embedding_bag_kernel_on_card(card, dtype, combiner):
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.normal(size=(1000, 128)).astype(
+        np.float32)).to(card, getattr(torch, dtype))
+    idx = torch.from_numpy(rng.integers(-1, 1000, (333, 26)).astype(
+        np.int32)).to(card)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(
+        embedding_bag.embedding_bag(table, idx, combiner).float(),
+        ref.embedding_bag_ref(table, idx, combiner).float(),
+        rtol=tol, atol=tol)

@@ -271,3 +271,102 @@ def test_mutate_population_twins(small_hg, monkeypatch):
     monkeypatch.setenv("REPRO_MUTATE_PATH", "bogus")
     with pytest.warns(UserWarning, match="REPRO_MUTATE_PATH"):
         assert mutate_path() == "batch"
+
+
+# --------------------------------------------------------------------------
+# the fixed-order sums of member rows, run here through their plain versions
+# --------------------------------------------------------------------------
+def _index_add_gains(ph, parts, k, path, ew):
+    """The gain assembly of member rows with ``index_add_`` in pin order,
+    the sums the fixed-order path replaced: on the CPU it must give the
+    same bits."""
+    alpha, n_pad = parts.shape
+    phi = metrics.pins_in_block_population(ph, parts, k)
+    pe, pv = ph.pin_edge.long(), ph.pin_vertex.long()
+    if path == "segsum":
+        bi, wi = metrics._edge_gain_terms(ph, phi, ew)
+        g = torch.zeros((alpha, n_pad, k)).index_add_(1, pv, bi[:, pe])
+    else:
+        s = ph.edge_sizes[:, None]
+        multi = ph.edge_sizes >= 2
+        mask = (phi == s - 1) & multi[:, None]
+        cols = torch.arange(k)
+        c1 = torch.where(mask, cols, k).amin(-1)
+        c2 = torch.where(mask & (cols != c1[..., None]), cols, k).amin(-1)
+        wi = torch.where((phi == s) & multi[:, None], ew[..., None],
+                         0.0).sum(-1)
+        rows = (torch.arange(alpha)[:, None] * n_pad + pv[None]) * (k + 1)
+        wp = ew[:, pe].reshape(-1)
+        g = torch.zeros(alpha * n_pad * (k + 1))
+        g.index_add_(0, (rows + c1[:, pe]).reshape(-1), wp)
+        g.index_add_(0, (rows + c2[:, pe]).reshape(-1), wp)
+        g = g.reshape(alpha, n_pad, k + 1)[..., :k]
+    l = torch.zeros((alpha, n_pad)).index_add_(1, pv, wi[:, pe])
+    return (g - l[..., None]).scatter_(2, parts.long()[..., None], 0.0)
+
+
+@pytest.mark.parametrize("path,k", [("segsum", 8), ("compact", 40)])
+def test_fixed_order_gain_sums_match_reference(path, k, small_hg):
+    """The fixed-order assembly of reweighted rows (pins sorted by vertex
+    through the rating sum): rtol 1e-6 against the reference on
+    reweighted rows, exact on integer rows."""
+    hga = small_hg.structural_copy().arrays()
+    ph = port_arrays(hga)
+    parts = _parts(small_hg, k, 3, seed=11, n_pad=hga.n_pad)
+    for mu, exact in ((0.1, False), (1.0, True)):
+        ew = _reweights(small_hg, 3, seed=12, m_pad=hga.m_pad, mu=mu)
+        want = jmetrics._gain_matrix_population_impl(
+            hga, jnp.asarray(parts), k, assemble=path,
+            ew_pop=jnp.asarray(ew))
+        got = metrics._gain_matrix_population_impl(
+            ph, torch.from_numpy(parts), k, assemble=path,
+            ew_pop=torch.from_numpy(ew))
+        assert ph.pin_sort is not None
+        order, vertex = ph.pin_sort
+        assert bool((vertex[1:] >= vertex[:-1]).all())
+        if exact:
+            assert_bit_equal(got, want, f"{path} integer rows")
+        else:
+            np.testing.assert_allclose(to_np(got), np.asarray(want),
+                                       rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("path,k", [("segsum", 8), ("compact", 40)])
+def test_fixed_order_gain_sums_keep_cpu_bits(path, k, small_hg):
+    """On CPU tensors the fixed-order sums of reweighted rows give the
+    bits of ``index_add_`` in pin order, the CPU's sums before them."""
+    ph = port_arrays(small_hg.structural_copy().arrays())
+    parts = torch.from_numpy(_parts(small_hg, k, 3, seed=13,
+                                    n_pad=ph.n_pad))
+    ew = torch.from_numpy(_reweights(small_hg, 3, seed=14, m_pad=ph.m_pad))
+    got = metrics._gain_matrix_population_impl(ph, parts, k, assemble=path,
+                                               ew_pop=ew)
+    assert_bit_equal(got, _index_add_gains(ph, parts, k, path, ew),
+                     f"{path} reweighted rows")
+
+
+def test_fixed_order_contract_and_fm_match_reference(small_hg):
+    """``contract_arrays(ew_pop=)`` and FM with member rows through the
+    fixed-order sums: member weights within rtol 1e-6 of the reference;
+    with integer rows, FM's parts and cuts equal the reference's."""
+    hga = small_hg.structural_copy().arrays()
+    rng = np.random.default_rng(5)
+    cid = np.full(hga.n_pad, hga.n_pad - 1, np.int32)
+    cid[: small_hg.n] = rng.integers(0, 80, small_hg.n)
+    ew = _reweights(small_hg, 3, seed=5, m_pad=hga.m_pad)
+    _, _, want_ew = ref_contract_arrays(
+        hga, jnp.asarray(cid), jnp.int32(80), ew_pop=jnp.asarray(ew))
+    _, _, got_ew = contract_arrays(port_arrays(hga), torch.from_numpy(cid),
+                                   80, ew_pop=torch.from_numpy(ew))
+    np.testing.assert_allclose(to_np(got_ew), np.asarray(want_ew),
+                               rtol=1e-6, atol=0.0)
+    k = 4
+    parts = _parts(small_hg, k, 3, seed=7, n_pad=hga.n_pad)
+    iew = _reweights(small_hg, 3, seed=7, m_pad=hga.m_pad, mu=1.0)
+    want_p, want_c = jrefine.fm_refine_population(hga, parts, k, 0.08,
+                                                  edge_weights_pop=iew,
+                                                  shard="off")
+    got_p, got_c = refine.fm_refine_population(port_arrays(hga), parts, k,
+                                               0.08, edge_weights_pop=iew)
+    assert_bit_equal(got_c, want_c, "cuts")
+    assert_bit_equal(got_p, want_p, "parts")

@@ -141,9 +141,24 @@ def test_vcycle_bit_equal(k, small_hg, monkeypatch):
                           eval_weights=w, device=CPU)
     assert got_c == want_c
     assert_bit_equal(got_p, want_p)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        vcycle(port_hg(small_hg), part, k, eps, scheduler=object(),
-               device=CPU)
+    # with a scheduler each level's tier is chosen through it, under
+    # SCHED_VCYCLE_PHASE: replaying the reference's decisions gives its
+    # partition and cut
+    from repro.core.scheduler import OperatorScheduler as RefScheduler
+    from repro_torch.core.scheduler import (SCHED_VCYCLE_PHASE,
+                                            OperatorScheduler,
+                                            SchedulerTrace)
+    live = RefScheduler(seed=5)
+    want_p, want_c = jvcycle.vcycle(small_hg, part, k, eps, seed=3,
+                                    scheduler=live)
+    replay = OperatorScheduler(
+        replay=SchedulerTrace.from_json(live.trace.to_json()))
+    got_p, got_c = vcycle(port_hg(small_hg), part, k, eps, seed=3,
+                          scheduler=replay, device=CPU)
+    assert got_c == want_c
+    assert_bit_equal(got_p, want_p)
+    assert replay.trace.arm_sequence() == live.trace.arm_sequence()
+    assert {d.phase for d in replay.trace.decisions} == {SCHED_VCYCLE_PHASE}
 
 
 def test_recombine_elitism_and_true_cut(small_hg, monkeypatch):
