@@ -15,8 +15,10 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    (population and one-member forms) must be exactly equal, the rating
    kernels allclose (rtol 1e-6) and bit-identical across two launches,
    and every row of the batched rating kernel bit-equal to the scalar
-   kernel on that row; time kernel, plain version and the library
-   yardstick, and compute the least time the card could take;
+   kernel on that row, also at the shape of mutation's FM steps; time
+   kernel (the gain and rating kernels replayed in a CUDA graph, as the
+   FM steps run them), plain version and the library yardstick, and
+   compute the least time the card could take;
 4. a small instance refined on the card and on the CPU under host
    coarsening must give the same partition and cut;
 5. the memetic-off paths: ``impart_partition`` without recombination,
@@ -61,11 +63,14 @@ when every phase ran.  ``--repair-cost=DIR`` then times the static
 memetic run of the ``sched`` phase with its mutation seconds on the
 package under ``DIR`` (the ``src`` of a tree before the fixed-order sums
 of mutation's reweights) and on this one, in child processes, in the
-order DIR, this, this, DIR.  With ``--profile`` the script then splits
-each memetic-off run into its phases (coarsening, initial partition, LP,
-FM; host clock around synchronized work) and traces the ibm08 run with
-``torch.profiler`` to report the device's busy share and its top
-kernels.
+order DIR, this, this, DIR; ``--kernel-compare=DIR`` times the kernels
+redesigned since such a tree (``kernel_times``: #2, #3, #4 and #6 at the
+kernel phase's shapes, and #4 at the FM step's shape in a CUDA graph) on
+DIR and on this one, in the same order.  With ``--profile`` the script
+then splits each memetic-off run into its phases (coarsening, initial
+partition, LP, FM; host clock around synchronized work) and traces the
+ibm08 run with ``torch.profiler`` to report the device's busy share and
+its top kernels.
 
 The line before the last holds the kernels as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -110,6 +115,9 @@ KERNEL_META = {
 }
 PHASES = ("kernels", "parity", "off", "memetic", "cli", "ops", "sched")
 
+# the largest level FM refines (``refine.refine_population``'s default)
+FM_NODE_LIMIT = 4096
+
 # MLPerf DLRM (Criteo 1TB): 26 sparse features, embed_dim 128, the table
 # cardinalities of the reference's dlrm_mlperf config, each capped here
 # at 2**20 rows; one training batch of 65,536 samples
@@ -137,6 +145,33 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """ms per call of ``fn``, captured ``calls`` times in one CUDA graph
+    that is replayed ``replays`` times: the way FM's graphed move steps
+    run their kernels (no host launch per call)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
 def _bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -159,14 +194,25 @@ def _gain_inputs(hg, k: int, alpha: int, seed: int, dev):
     return hga.incident, bi.contiguous(), wi.contiguous()
 
 
-def _odd_gain_inputs(alpha, n, d, m, k, seed, dev):
-    """Random incidence with pads, degree-0 rows and integer tables."""
+# odd shapes (alpha, N, D, M, k) of the gain kernels: k around the warp
+# and column-group widths up to 1024, D = 1, and N off every block size
+GAIN_ODD = [(1, 1000, 8, 700, 2), (3, 1000, 8, 700, 33),
+            (3, 777, 16, 1500, 64), (2, 600, 16, 900, 100),
+            (1, 300, 24, 513, 1024), (3, 500, 1, 300, 64)]
+
+
+def _odd_gain_inputs(alpha, n, d, m, k, seed, dev, trailing=False):
+    """Random incidence with pads anywhere in a row (or, ``trailing``,
+    after the valid ids, as the layout builder places them), degree-0
+    rows and integer tables."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     inc = rng.integers(0, m, (n, d)).astype(np.int32)
     inc[rng.random((n, d)) < 0.3] = -1
     inc[rng.random(n) < 0.1] = -1          # degree-0 vertices
+    if trailing:
+        inc = -np.sort(-inc, axis=1)        # valid ids first, pads last
     bi = rng.integers(0, 4, (alpha, m, k)).astype(np.float32)
     wi = rng.integers(0, 4, (alpha, m)).astype(np.float32)
     return (torch.from_numpy(inc).to(dev), torch.from_numpy(bi).to(dev),
@@ -195,17 +241,19 @@ def check_gain_kernels(report, dev):
         "gain_table": (gain.gain_gather_batch, ref.gain_gather_batch_ref,
                        ("ibm01_like", 16)),
     }
-    odd = [(1, 1000, 8, 700, 2), (3, 1000, 8, 700, 33), (3, 777, 16, 1500, 64),
-           (1, 300, 24, 513, 1024)]
+    odd = [(shape, False) for shape in GAIN_ODD] + [
+        ((3, 777, 16, 1500, 64), True)]
     for name, (kern, plain, (design, k)) in cases.items():
         errs = []
-        for i, shape in enumerate(odd):
-            inc, bi, wi = _odd_gain_inputs(*shape, seed=i, dev=dev)
+        for i, (shape, trailing) in enumerate(odd):
+            inc, bi, wi = _odd_gain_inputs(*shape, seed=i, dev=dev,
+                                           trailing=trailing)
             got, want = kern(inc, bi, wi), plain(inc, bi, wi)
+            again = kern(inc, bi, wi)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
+            if not (torch.equal(got, want) and torch.equal(got, again)):
                 raise AssertionError(f"{name} differs from its plain version "
-                                     f"at {shape}")
+                                     f"(or its rerun) at {shape}")
             errs.append(float((got - want).abs().max()))
         inc, bi, wi = _gain_inputs(ispd_like(design, 1.0), k, 7, 0, dev)
         got, want = kern(inc, bi, wi), plain(inc, bi, wi)
@@ -216,7 +264,7 @@ def check_gain_kernels(report, dev):
                                  f"{design} k={k}")
         errs.append(float((got - want).abs().max()))
         del got, want, again
-        ms = _time_ms(lambda: kern(inc, bi, wi))
+        ms = _graph_ms(lambda: kern(inc, bi, wi))
         plain_ms = _time_ms(lambda: plain(inc, bi, wi), iters=5)
         lib_ms = _time_ms(lambda: ref.gain_gather_embedding_bag(inc, bi))
         bound, by = _gain_bound(inc, bi)
@@ -243,18 +291,20 @@ def check_gain_one_kernels(report, dev):
         "gain_table_one": (gain.gain_gather, ref.gain_gather_ref,
                            ("ibm01_like", 16)),
     }
-    odd = [(1, 1000, 8, 700, 2), (1, 1000, 8, 700, 33),
-           (1, 777, 16, 1500, 64), (1, 300, 24, 513, 1024)]
+    odd = [((1,) + shape[1:], False) for shape in GAIN_ODD] + [
+        ((1, 777, 16, 1500, 64), True)]
     for name, (kern, plain, (design, k)) in cases.items():
         errs = []
-        for i, shape in enumerate(odd):
-            inc, bi, wi = _odd_gain_inputs(*shape, seed=10 + i, dev=dev)
+        for i, (shape, trailing) in enumerate(odd):
+            inc, bi, wi = _odd_gain_inputs(*shape, seed=10 + i, dev=dev,
+                                           trailing=trailing)
             bi, wi = bi[0], wi[0]
             got, want = kern(inc, bi, wi), plain(inc, bi, wi)
+            again = kern(inc, bi, wi)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
+            if not (torch.equal(got, want) and torch.equal(got, again)):
                 raise AssertionError(f"{name} differs from its plain version "
-                                     f"at {shape}")
+                                     f"(or its rerun) at {shape}")
             errs.append(float((got - want).abs().max()))
         inc, bi, wi = _gain_inputs(ispd_like(design, 1.0), k, 1, 0, dev)
         bi, wi = bi[0], wi[0]
@@ -265,7 +315,7 @@ def check_gain_one_kernels(report, dev):
             raise AssertionError(f"{name} differs from its plain version on "
                                  f"{design} k={k}")
         errs.append(float((got - want).abs().max()))
-        ms = _time_ms(lambda: kern(inc, bi, wi))
+        ms = _graph_ms(lambda: kern(inc, bi, wi))
         plain_ms = _time_ms(lambda: plain(inc, bi, wi), iters=5)
         lib_ms = _time_ms(
             lambda: ref.gain_gather_embedding_bag(inc, bi[None]))
@@ -281,10 +331,12 @@ def check_gain_one_kernels(report, dev):
         torch.cuda.empty_cache()
 
 
-def _rating_batch_checked(vals, segs, s: int, what: str) -> float:
-    """One batched launch against the plain version (rtol 1e-6), against
-    alpha launches of the scalar kernel (bit for bit) and against a
-    second launch (bit for bit); returns the largest absolute error."""
+def _rating_batch_checked(vals, segs, s: int, what: str,
+                          exact: bool = False) -> float:
+    """One batched launch against the plain version (rtol 1e-6, or equal
+    with ``exact`` for integer values), against alpha launches of the
+    scalar kernel (bit for bit) and against a second launch (bit for
+    bit); returns the largest absolute error."""
     import torch
     from repro_torch.kernels import rating, ref
     got = rating.rating_segment_sum_batch(vals, segs, s)
@@ -293,6 +345,10 @@ def _rating_batch_checked(vals, segs, s: int, what: str) -> float:
                         for row in vals])
     want = ref.rating_segment_sum_batch_ref(vals, segs, s)
     torch.cuda.synchronize()
+    if exact:
+        if not torch.equal(got, want):
+            raise AssertionError(f"batched rating kernel differs from its "
+                                 f"plain version on integers at {what}")
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
     if not torch.equal(got, rows):
         raise AssertionError(f"batched rating rows differ from the scalar "
@@ -303,14 +359,158 @@ def _rating_batch_checked(vals, segs, s: int, what: str) -> float:
     return float((got - want).abs().max())
 
 
-def check_rating_batch_kernel(report, dev):
-    """The batched rating kernel (#4) at odd shapes and at the mutation
-    cohort's shape on ibm08_like: alpha 7 reweighted rows over the
-    finest level's C = 4 * p_pad candidates."""
+def _rating_odd_shapes(rng):
+    """Odd shapes of the rating kernels, ``(segs, vals[alpha, C], S,
+    exact, label)``: every segment of length 1, a run of 150,000 (longer
+    than a tile, with integer values so that any order is exact), every
+    id dropped (below 0, or at least S), C = 1 and C off the warp width,
+    and alpha = 119 (the FM step's rows)."""
+    import numpy as np
+    out = []
+
+    def real(alpha, c):
+        return (rng.random((alpha, c)) + 0.1).astype(np.float32)
+
+    c = 5001
+    out.append((np.arange(c, dtype=np.int32), real(3, c), c, False,
+                "every segment of length 1"))
+    segs = np.concatenate([np.sort(rng.integers(0, 400, 20_000)),
+                           np.full(150_000, 400),
+                           np.sort(rng.integers(401, 1000, 20_003))])
+    out.append((segs.astype(np.int32),
+                rng.integers(0, 4, (2, segs.size)).astype(np.float32), 1000,
+                True, "a run of 150,000"))
+    out.append((np.full(777, -1, np.int32), real(2, 777), 500, False,
+                "every id below 0"))
+    out.append((np.full(777, 900, np.int32), real(2, 777), 500, False,
+                "every id >= S"))
+    out.append((np.zeros(1, np.int32), real(1, 1), 1, False, "C = 1"))
+    out.append((np.full(1, 3, np.int32), real(3, 1), 10, False,
+                "C = 1, S = 10"))
+    segs = np.sort(rng.integers(-5, 950, 1001)).astype(np.int32)
+    out.append((segs, real(4, 1001), 900, False, "C = 1001, ids both sides"))
+    segs = np.sort(rng.integers(0, 4096, 16_385)).astype(np.int32)
+    out.append((segs, real(119, 16_385), 4096, False, "alpha = 119"))
+    return out
+
+
+def _cohort_candidates(dev):
+    """The mutation cohort's coarsening shape on ibm08_like: alpha 7
+    reweighted rows ``w * (1 + 0.1 * C)`` over the finest level's
+    C = 4 * p_pad sorted candidates.  Returns ``(r_pop, seg, C)``."""
     import numpy as np
     import torch
     from repro_torch.core import dcoarsen
     from repro_torch.data.hypergraphs import ispd_like
+    rng = np.random.default_rng(1)
+    hg = ispd_like("ibm08_like", 1.0)
+    hga = hg.arrays(device=dev)
+    alpha = 7
+    parts = torch.zeros((alpha, hga.n_pad), dtype=torch.int32, device=dev)
+    ew = np.zeros((alpha, hga.m_pad), np.float32)
+    ew[:, : hg.m] = hg.edge_weights * (
+        1.0 + 0.1 * rng.integers(0, alpha, (alpha, hg.m)))
+    _, _, r_pop, seg = dcoarsen._sorted_candidates_population(
+        hga, parts, torch.from_numpy(ew).to(dev),
+        max_stride=dcoarsen.MAX_STRIDE, max_edge_size=dcoarsen.MAX_EDGE_SIZE)
+    return r_pop, seg, r_pop.shape[1]
+
+
+def _coarsen_candidates(dev):
+    """The device coarsener's first round on ibm08_like: ``(r, seg, C)``."""
+    from repro_torch.core import dcoarsen
+    from repro_torch.data.hypergraphs import ispd_like
+    hga = ispd_like("ibm08_like", 1.0).arrays(device=dev)
+    _, _, r, seg = dcoarsen._sorted_candidates(
+        hga, None, max_stride=dcoarsen.MAX_STRIDE,
+        max_edge_size=dcoarsen.MAX_EDGE_SIZE)
+    return r, seg, r.shape[0]
+
+
+def _fm_level(dev):
+    """The shape at which mutation's FM steps launch #4: an ibm01_like
+    cohort (k 16, alpha 7, rows ``w * (1 + 0.1 * C)``) coarsened by
+    ``population_coarsen`` on the card, at its finest level with at most
+    ``FM_NODE_LIMIT`` vertices (the first level FM refines).  The members
+    are one contiguous-block partition with 50 seeded moves each: a
+    cohort's members agree on most vertices, so the hierarchy coarsens as
+    a real cohort's does.  Returns ``(hga, phi, ew_pop, k)`` with the
+    level's Phi of the cohort's projected parts."""
+    import numpy as np
+    from repro_torch.core import dcoarsen, metrics
+    from repro_torch.data.hypergraphs import ispd_like
+    hg = ispd_like("ibm01_like", 1.0)
+    alpha, k = 7, 16
+    rng = np.random.default_rng(5)
+    parts = np.stack([(np.arange(hg.n) * k // hg.n).astype(np.int32)]
+                     * alpha)
+    for a in range(alpha):
+        parts[a, rng.integers(0, hg.n, 50)] = rng.integers(0, k, 50)
+    ew = (hg.edge_weights * (1.0 + 0.1 * rng.integers(
+        0, alpha, (alpha, hg.m)))).astype(np.float32)
+    hier = dcoarsen.population_coarsen(hg, parts, ew, k, seed=0, device=dev)
+    li = next(i for i in range(hier.num_levels)
+              if hier.level_arrays(i).n <= FM_NODE_LIMIT)
+    hga = hier.level_arrays(li)
+    phi = metrics.pins_in_block_population(hga, hier.level_parts(li), k)
+    return hga, phi, hier.level_ew(li), k
+
+
+def _fm_rows(hga, phi, ew_pop):
+    """The [alpha * (k + 1), P] rows that ``metrics._gain_segsum`` sums
+    per vertex with member rows (becomes_internal by column, then
+    was_internal), with the pins in vertex order, and the vertex ids."""
+    import torch
+    from repro_torch.core import metrics
+    bi, wi = metrics._edge_gain_terms(hga, phi, ew_pop)
+    order, vertex = metrics.pins_by_vertex(hga)
+    pe = hga.pin_edge.long()[order]
+    alpha, _, k = bi.shape
+    rows = torch.cat([bi.permute(0, 2, 1)[:, :, pe].reshape(alpha * k, -1),
+                      wi[:, pe]]).contiguous()
+    return rows, vertex
+
+
+def check_rating_fm_shape(dev) -> float:
+    """#4 at the FM step's shape (``_fm_level``): held like the other
+    shapes, then timed in a CUDA graph beside the whole
+    ``_gain_segsum`` with member rows and ``index_add_`` of the same
+    sum.  Returns the largest absolute error."""
+    import torch
+    from repro_torch.core import metrics
+    from repro_torch.kernels import rating
+    hga, phi, ew, k = _fm_level(dev)
+    rows, vertex = _fm_rows(hga, phi, ew)
+    n_pad = hga.n_pad
+    err = _rating_batch_checked(rows, vertex, n_pad, "FM step")
+    r, p = rows.shape
+    ms = _graph_ms(lambda: rating.rating_segment_sum_batch(rows, vertex,
+                                                           n_pad))
+    segsum_ms = _graph_ms(lambda: metrics._gain_segsum(hga, phi, ew))
+    idx = vertex.long()
+    lib_ms = _graph_ms(lambda: torch.zeros(
+        (r, n_pad), dtype=torch.float32, device=dev).index_add_(1, idx, rows))
+    bound, by = _bound_ms(r * p * 4 + p * 4 + r * n_pad * 4, r * p)
+    lengths = torch.bincount(idx, minlength=n_pad)
+    print(f"[kernel] rating_segment_sum_batch FM step ibm01_like cohort "
+          f"alpha=7 k={k} level n={hga.n} n_pad={n_pad} rows={r} P={p} "
+          f"(longest segment {int(lengths.max())}, the ghost vertex's "
+          f"{int(lengths[-1])}): allclose rtol=1e-6, rows bit-equal to the "
+          "scalar kernel, bit-stable")
+    for label, val in (("fm_ms (graph)", ms),
+                       ("fm_gain_segsum_ms (graph)", segsum_ms),
+                       ("fm_library_ms (index_add_, graph)", lib_ms),
+                       ("fm_bound_ms", bound)):
+        print(f"[kernel] rating_segment_sum_batch {label} {val!r}")
+    return err
+
+
+def check_rating_batch_kernel(report, dev):
+    """The batched rating kernel (#4) at odd shapes, at the mutation
+    cohort's coarsening shape on ibm08_like (``_cohort_candidates``) and
+    at the FM step's shape (``check_rating_fm_shape``)."""
+    import numpy as np
+    import torch
     from repro_torch.kernels import rating, ref
     errs = []
     rng = np.random.default_rng(1)
@@ -325,19 +525,16 @@ def check_rating_batch_kernel(report, dev):
         errs.append(_rating_batch_checked(
             torch.from_numpy(vals).to(dev), torch.from_numpy(segs).to(dev),
             s, (alpha, c, s)))
-    hg = ispd_like("ibm08_like", 1.0)
-    hga = hg.arrays(device=dev)
-    alpha = 7
-    parts = torch.zeros((alpha, hga.n_pad), dtype=torch.int32, device=dev)
-    ew = np.zeros((alpha, hga.m_pad), np.float32)
-    ew[:, : hg.m] = hg.edge_weights * (
-        1.0 + 0.1 * rng.integers(0, alpha, (alpha, hg.m)))
-    _, _, r_pop, seg = dcoarsen._sorted_candidates_population(
-        hga, parts, torch.from_numpy(ew).to(dev),
-        max_stride=dcoarsen.MAX_STRIDE, max_edge_size=dcoarsen.MAX_EDGE_SIZE)
-    c = r_pop.shape[1]
+    odd = _rating_odd_shapes(rng)
+    for segs, vals, s, exact, label in odd:
+        errs.append(_rating_batch_checked(
+            torch.from_numpy(vals).to(dev), torch.from_numpy(segs).to(dev),
+            s, label, exact=exact))
+    errs.append(check_rating_fm_shape(dev))
+    r_pop, seg, c = _cohort_candidates(dev)
+    alpha = r_pop.shape[0]
     errs.append(_rating_batch_checked(r_pop, seg, c, "ibm08_like"))
-    ms = _time_ms(lambda: rating.rating_segment_sum_batch(r_pop, seg, c))
+    ms = _graph_ms(lambda: rating.rating_segment_sum_batch(r_pop, seg, c))
     plain_ms = _time_ms(
         lambda: ref.rating_segment_sum_batch_ref(r_pop, seg, c))
     ids = (torch.arange(alpha, device=dev)[:, None] * c
@@ -348,7 +545,8 @@ def check_rating_batch_kernel(report, dev):
     bound, by = _bound_ms(4 * alpha * c + 4 * c + 4 * alpha * c, alpha * c)
     print(f"[kernel] rating_segment_sum_batch ibm08_like alpha={alpha} "
           f"C={c}: allclose rtol=1e-6, rows bit-equal to the scalar kernel, "
-          "bit-stable, at main-path and 5 odd shapes")
+          f"bit-stable, at main-path, FM-step and {5 + len(odd)} odd "
+          "shapes")
     for label, val in (("ms", ms), ("plain_ms", plain_ms),
                        ("library_ms", lib_ms), ("bound_ms", bound)):
         print(f"[kernel] rating_segment_sum_batch {label} {val!r}")
@@ -360,8 +558,6 @@ def check_rating_batch_kernel(report, dev):
 def check_rating_kernel(report, dev):
     import numpy as np
     import torch
-    from repro_torch.core import dcoarsen
-    from repro_torch.data.hypergraphs import ispd_like
     from repro_torch.kernels import rating, ref
     errs = []
     rng = np.random.default_rng(0)
@@ -380,11 +576,7 @@ def check_rating_kernel(report, dev):
         if not torch.equal(got, again):
             raise AssertionError(f"rating kernel not bit-stable at {(c, s)}")
         errs.append(float((got - want).abs().max()))
-    hga = ispd_like("ibm08_like", 1.0).arrays(device=dev)
-    _, _, r, seg = dcoarsen._sorted_candidates(
-        hga, None, max_stride=dcoarsen.MAX_STRIDE,
-        max_edge_size=dcoarsen.MAX_EDGE_SIZE)
-    c = r.shape[0]
+    r, seg, c = _coarsen_candidates(dev)
     got = rating.rating_segment_sum(r, seg, c)
     again = rating.rating_segment_sum(r, seg, c)
     want = ref.rating_segment_sum_ref(r, seg, c)
@@ -394,12 +586,13 @@ def check_rating_kernel(report, dev):
         raise AssertionError("rating kernel not bit-stable on ibm08_like")
     errs.append(float((got - want).abs().max()))
     lengths = torch.bincount(seg.long())
-    ms = _time_ms(lambda: rating.rating_segment_sum(r, seg, c))
+    ms = _graph_ms(lambda: rating.rating_segment_sum(r, seg, c))
     plain_ms = _time_ms(lambda: ref.rating_segment_sum_ref(r, seg, c))
     lib_ms = _time_ms(lambda: torch.segment_reduce(r, "sum", lengths=lengths))
     bound, by = _bound_ms(c * 8 + c * 4, c)
     print(f"[kernel] rating_segment_sum ibm08_like C={c}: allclose rtol=1e-6 "
-          "and bit-stable at main-path and 5 odd shapes")
+          "and bit-stable at main-path and 5 odd shapes (the odd shapes of "
+          "#4 run it row by row)")
     for label, val in (("ms", ms), ("plain_ms", plain_ms),
                        ("library_ms", lib_ms), ("bound_ms", bound)):
         print(f"[kernel] rating_segment_sum {label} {val!r}")
@@ -808,11 +1001,13 @@ class _Timed:
 
 
 def run_memetic_path(design: str, k: int, off_cut, must_launch,
-                     eps: float = 0.03, beta: int = 7):
+                     cohort_launch=(), eps: float = 0.03, beta: int = 7):
     """``impart_partition`` with the reference defaults (recombination,
     mutation, one final V-cycle) on the card.  Counts the recombination
     branches by wrapping the module functions, and splits the wall time
-    into recombination, mutation, final V-cycle and the rest."""
+    into recombination, mutation, final V-cycle and the rest.  The
+    kernels of ``cohort_launch`` run only in a mutation cohort's V-cycle,
+    so they are required when a mutation event re-partitioned one."""
     import torch
     from repro_torch.core import ilp, impart, mutate, recombine
     from repro_torch.core.impart import ImpartConfig, impart_partition
@@ -871,6 +1066,11 @@ def run_memetic_path(design: str, k: int, off_cut, must_launch,
     for tag in ("recombine@", "mutate@", "final-vcycle@0"):
         if not any(e.startswith(tag) for e in events):
             raise AssertionError(f"{design}: no {tag} event in the trace")
+    if wraps["mutation cohorts"].calls:
+        must_launch = tuple(must_launch) + tuple(cohort_launch)
+    else:
+        print(f"[memetic] {design}: no mutation event re-partitioned a "
+              f"cohort, so {list(cohort_launch)} had nothing to run here")
     missing = [n for n in must_launch if counts[n] == 0]
     if missing:
         raise AssertionError(f"{design}: kernels never launched on the "
@@ -994,8 +1194,8 @@ def run_ops_path(must_launch):
     return counts
 
 
-def run_sched_path(design: str, k: int, must_launch, eps: float = 0.03,
-                   beta: int = 7):
+def run_sched_path(design: str, k: int, must_launch, cohort_launch=(),
+                   eps: float = 0.03, beta: int = 7):
     """The bandit operator schedule, following the reference's
     equal-wall-clock protocol: the static schedule's wall W, a bandit run
     with ``time_budget_s=W``, and the replay of its trace after a JSON
@@ -1053,8 +1253,8 @@ def run_sched_path(design: str, k: int, must_launch, eps: float = 0.03,
 
     print(f"[sched] {design} n={hg.n} m={hg.m} k={k} eps={eps} alpha=7 "
           f"beta={beta} final_vcycles=1 seed=0")
-    static, w_static, _ = drive("static", ImpartConfig(sched="static",
-                                                       **common))
+    static, w_static, cohorts_static = drive(
+        "static", ImpartConfig(sched="static", **common))
     live, w_live, cohorts = drive("bandit", ImpartConfig(
         sched="bandit", time_budget_s=w_static, **common))
     trace = live.sched_trace
@@ -1084,6 +1284,8 @@ def run_sched_path(design: str, k: int, must_launch, eps: float = 0.03,
                              "one")
     print(f"[sched] {design} replay == live: partition, cut, arm sequence "
           "and final V-cycles bit-equal")
+    if cohorts_static + cohorts + cohorts_replay:
+        must_launch = tuple(must_launch) + tuple(cohort_launch)
     missing = [n for n in must_launch if path_total.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"sched path: kernels never launched: "
@@ -1147,6 +1349,109 @@ def run_repair_cost(parent_src: str) -> None:
                 if ln.startswith("[cost] ")][-1]
         print(f"[cost] ibm01_like k=16 static memetic, {label} ({src}): "
               f"{line[7:]}")
+
+
+_LEVEL_FIELDS = ("pin_vertex", "pin_edge", "vertex_weights", "edge_weights",
+                 "edge_sizes")
+
+
+def save_fm_level(path: str) -> None:
+    """``_fm_level``'s level, Phi and rows to ``path``: the hierarchy
+    depends on the rating kernel's bits, so trees compared on one card
+    read the level built once, here."""
+    import torch
+    hga, phi, ew, k = _fm_level(torch.device("cuda"))
+    torch.save(dict({f: getattr(hga, f).cpu() for f in _LEVEL_FIELDS},
+                    n=hga.n, m=hga.m, phi=phi.cpu(), ew=ew.cpu(), k=k), path)
+
+
+def load_fm_level(path: str, dev):
+    import torch
+    from repro_torch.core.hypergraph import HypergraphArrays
+    d = torch.load(path)
+    hga = HypergraphArrays(*(d[f].to(dev) for f in _LEVEL_FIELDS),
+                           n=d["n"], m=d["m"])
+    return hga, d["phi"].to(dev), d["ew"].to(dev), d["k"]
+
+
+def kernel_times(level_path: str) -> dict:
+    """Times of the kernels this tree's ``repro_torch`` redesigned (#2,
+    #3, #4, #6) at the shapes the kernel phase times them, and #4 at the
+    FM step's shape (the level saved by ``save_fm_level``): the kernel
+    alone and the whole ``_gain_segsum`` with member rows, both in a CUDA
+    graph (``_graph_ms``).  Uses only calls that older trees of the port
+    have too."""
+    import torch
+    from repro_torch.core import metrics
+    from repro_torch.data.hypergraphs import ispd_like
+    from repro_torch.kernels import gain, rating
+    dev = torch.device("cuda")
+    out = {}
+    hga, phi, ew, _ = load_fm_level(level_path, dev)
+    rows, vertex = _fm_rows(hga, phi, ew)
+    n_pad = hga.n_pad
+    out["rating_segment_sum_batch FM step (graph)"] = _graph_ms(
+        lambda: rating.rating_segment_sum_batch(rows, vertex, n_pad))
+    out["_gain_segsum FM step (graph)"] = _graph_ms(
+        lambda: metrics._gain_segsum(hga, phi, ew))
+    r_pop, seg, c = _cohort_candidates(dev)
+    out["rating_segment_sum_batch"] = _graph_ms(
+        lambda: rating.rating_segment_sum_batch(r_pop, seg, c))
+    r, seg1, c1 = _coarsen_candidates(dev)
+    out["rating_segment_sum"] = _graph_ms(
+        lambda: rating.rating_segment_sum(r, seg1, c1))
+    hg = ispd_like("ibm08_like", 1.0)
+    inc, bi, wi = _gain_inputs(hg, 64, 7, 0, dev)
+    out["gain_stream"] = _graph_ms(
+        lambda: gain.gain_stream_batch(inc, bi, wi))
+    del bi, wi
+    inc, bi, wi = _gain_inputs(hg, 64, 1, 0, dev)
+    bi, wi = bi[0], wi[0]
+    out["gain_stream_one"] = _graph_ms(lambda: gain.gain_stream(inc, bi, wi))
+    return out
+
+
+_TIMES_CHILD = """
+import json, sys
+import chip_smoke
+print("[times] " + json.dumps(chip_smoke.kernel_times(sys.argv[1])),
+      flush=True)
+"""
+
+
+def run_kernel_compare(parent_src: str) -> None:
+    """``kernel_times`` on the package at ``parent_src`` (an older tree)
+    and on this one, in child processes on this card, in the order
+    parent, this, this, parent; then each time's mean per tree and the
+    parent's mean over this tree's."""
+    here = os.path.join(ROOT, "src")
+    runs = {"parent": [], "this": []}
+    level = tempfile.NamedTemporaryFile(suffix=".pt", dir=ROOT, delete=False)
+    level.close()
+    try:
+        save_fm_level(level.name)
+        for label, src in (("parent", parent_src), ("this", here),
+                           ("this", here), ("parent", parent_src)):
+            proc = subprocess.run(
+                [sys.executable, "-c", _TIMES_CHILD, level.name],
+                capture_output=True, text=True, cwd=ROOT,
+                env=dict(os.environ, PYTHONPATH=src), timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"kernel times on {src} exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            line = [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("[times] ")][-1]
+            print(f"[compare] {label} ({src}): {line[8:]}")
+            runs[label].append(json.loads(line[8:]))
+    finally:
+        os.unlink(level.name)
+    for name in runs["this"][0]:
+        mean = {lab: sum(r[name] for r in rs) / len(rs)
+                for lab, rs in runs.items()}
+        print(f"[compare] {name}: parent {mean['parent']!r} ms, this "
+              f"{mean['this']!r} ms, parent/this "
+              f"{mean['parent'] / mean['this']!r}")
 
 
 def profile_main_path(design: str, k: int, eps: float = 0.03,
@@ -1248,7 +1553,8 @@ def main() -> int:
         log = build.lib_path(name).with_suffix(".log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry" in line):
                     print(f"[build] {name}: {line.strip()}")
 
     dev = torch.device("cuda")
@@ -1300,8 +1606,8 @@ def main() -> int:
                 off_cut = cut
     if "memetic" in phases:
         add(run_memetic_path("ibm08_like", 64, off_cut,
-                             ("rating_segment_sum_batch",
-                              "rating_segment_sum", "gain_stream")))
+                             ("rating_segment_sum", "gain_stream"),
+                             ("rating_segment_sum_batch",)))
     if "cli" in phases:
         for design, k, must in (("ibm08_like", 64, ("gain_stream_one",)),
                                 ("ibm01_like", 16, ("gain_table_one",))):
@@ -1312,7 +1618,8 @@ def main() -> int:
         # #8 comes from the phase's card-side cut checks, which fail
         # unless they launch it
         add(run_sched_path("ibm01_like", 16, ("gain_table",
-                                              "rating_segment_sum")))
+                                              "rating_segment_sum"),
+                           ("rating_segment_sum_batch",)))
     if "--profile" in sys.argv[1:]:
         for design, k in (("ibm08_like", 64), ("ibm01_like", 16)):
             profile_main_path(design, k)
@@ -1320,10 +1627,17 @@ def main() -> int:
     for arg in sys.argv[1:]:
         if arg.startswith("--repair-cost="):
             run_repair_cost(os.path.abspath(arg.split("=", 1)[1]))
+        if arg.startswith("--kernel-compare="):
+            run_kernel_compare(os.path.abspath(arg.split("=", 1)[1]))
     if set(phases) != set(PHASES):
         print(f"[smoke] ran phases {list(phases)} only: no result line")
         return 3
 
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        print(f"chip_smoke: kernels no main path launched: {idle}",
+              file=sys.stderr)
+        return 1
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
         kernels.append(dict(name=name, route="cuda", source=source,

@@ -244,8 +244,9 @@ class HypergraphArrays:
     ints).  ``incident`` is the optional dense [n_pad, D_pad] int32
     incident-edge layout (pad = -1) the gain kernels read; None when no
     kernel path is reachable.  ``pin_sort`` caches the pins sorted by
-    vertex (``metrics.pins_by_vertex``), built once per level for the
-    card's fixed-order sums.
+    vertex (``metrics.pins_by_vertex``) and ``pin_sort_edge`` their edge
+    ids in that order, built once per level for the fixed-order sums of
+    mutation's member rows.
     """
 
     pin_vertex: torch.Tensor      # [P_pad] int32, padded -> n_pad - 1
@@ -257,6 +258,8 @@ class HypergraphArrays:
     m: int
     incident: Optional[torch.Tensor] = None
     pin_sort: Optional[Tuple[torch.Tensor, torch.Tensor]] = \
+        dataclasses.field(default=None, repr=False, compare=False)
+    pin_sort_edge: Optional[torch.Tensor] = \
         dataclasses.field(default=None, repr=False, compare=False)
 
     # -- derived sizes -------------------------------------------------------

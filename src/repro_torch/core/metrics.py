@@ -163,24 +163,33 @@ def _edge_gain_terms(hga: HypergraphArrays, phi: torch.Tensor,
 def pins_by_vertex(hga: HypergraphArrays):
     """``(order, vertex)``: the pin permutation that sorts ``pin_vertex``
     ascending (stable) and the int32 vertex ids in that order, cached on
-    ``hga`` (the structure is fixed per level).  A CUDA graph must not
-    build it during capture: callers that capture build it first."""
+    ``hga`` (the structure is fixed per level) with the pins' edge ids in
+    that order (``sorted_pin_edges``).  A CUDA graph must not build them
+    during capture: callers that capture build them first."""
     if hga.pin_sort is None:
         order = torch.argsort(hga.pin_vertex, stable=True)
         hga.pin_sort = (order, hga.pin_vertex[order].contiguous())
+        hga.pin_sort_edge = hga.pin_edge.long()[order]
     return hga.pin_sort
 
 
+def sorted_pin_edges(hga: HypergraphArrays) -> torch.Tensor:
+    """int64 edge id of every pin, pins in ``pins_by_vertex`` order: a
+    gather through it builds per-pin rows already sorted by vertex."""
+    pins_by_vertex(hga)
+    return hga.pin_sort_edge
+
+
 def _vertex_sums(hga: HypergraphArrays,
-                 pin_rows: torch.Tensor) -> torch.Tensor:
-    """[R, n_pad] sums of the per-pin rows ``pin_rows[R, P]`` (pin order of
-    ``hga``) over each vertex's pins, in a fixed order: the pins sorted by
-    vertex through the batched rating kernel, launched on the current
-    stream with no host sync (capturable in a CUDA graph)."""
+                 sorted_rows: torch.Tensor) -> torch.Tensor:
+    """[R, n_pad] sums of per-pin rows ``sorted_rows[R, P]`` (pins in
+    ``pins_by_vertex`` order, e.g. gathered through ``sorted_pin_edges``)
+    over each vertex's pins, in a fixed order: the batched rating kernel,
+    launched on the current stream with no host sync (capturable in a
+    CUDA graph)."""
     from repro_torch.kernels import ops
-    order, vertex = pins_by_vertex(hga)
-    return ops.rating_segment_sum_batch(pin_rows[:, order].contiguous(),
-                                        vertex, hga.n_pad)
+    _, vertex = pins_by_vertex(hga)
+    return ops.rating_segment_sum_batch(sorted_rows, vertex, hga.n_pad)
 
 
 def _gain_segsum(hga: HypergraphArrays, phi: torch.Tensor,
@@ -192,10 +201,15 @@ def _gain_segsum(hga: HypergraphArrays, phi: torch.Tensor,
     alpha, _, k = phi.shape
     if ew_pop is not None:
         # real-valued member rows: (member, column) rows of
-        # becomes_internal, then the members' was_internal rows, summed
-        # per vertex in one fixed-order launch
-        rows = torch.cat([becomes_internal.permute(0, 2, 1)[:, :, pe]
-                          .reshape(alpha * k, -1), was_internal[:, pe]])
+        # becomes_internal, then the members' was_internal rows, gathered
+        # with the pins sorted by vertex into one buffer and summed per
+        # vertex in one fixed-order launch
+        pe_v = sorted_pin_edges(hga)
+        rows = torch.empty((alpha * (k + 1), pe_v.numel()),
+                           dtype=torch.float32, device=phi.device)
+        torch.index_select(becomes_internal.transpose(1, 2), 2, pe_v,
+                           out=rows[: alpha * k].view(alpha, k, -1))
+        torch.index_select(was_internal, 1, pe_v, out=rows[alpha * k:])
         sums = _vertex_sums(hga, rows)
         g = sums[: alpha * k].reshape(alpha, k, hga.n_pad).transpose(1, 2)
         return g - sums[alpha * k:, :, None]
@@ -247,7 +261,7 @@ def _gain_compact(hga: HypergraphArrays, phi: torch.Tensor, k: int,
         srt, perm = torch.sort(torch.cat([s1, s2]), stable=True)
         g = ops.rating_segment_sum(torch.cat([wp, wp])[perm].contiguous(),
                                    srt.to(torch.int32), size)
-        l = _vertex_sums(hga, was_internal[:, pe])
+        l = _vertex_sums(hga, was_internal[:, sorted_pin_edges(hga)])
     else:
         g = torch.zeros(size, dtype=torch.float32, device=dev)
         g.index_add_(0, s1, wp)

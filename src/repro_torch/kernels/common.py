@@ -15,24 +15,14 @@ WARP_LANES = 32
 #: Largest k routed to the ``table`` gain kernel.  One warp owns one
 #: (member, vertex) row with its lanes over the k columns: at
 #: k <= WARP_LANES every lane holds exactly one column and the row is
-#: done in one pass over the vertex's incident edges.  Above it a lane
-#: would walk several columns, each pass re-reading the edge ids, while
-#: the ``stream`` kernel spreads a vertex tile's (vertex, column) pairs
-#: over a whole block and reads the edge ids once from shared memory.
+#: done in one pass over the vertex's incident edges.  Above it the
+#: ``stream`` kernel lays a row's columns over a group of 8, 16 or 32
+#: lanes with 16-byte loads (four columns a lane where k allows it), so a
+#: warp covers 128 columns a pass.
 GAIN_WARP_MAX_K = WARP_LANES
 
 #: Threads of one ``table`` or ``stream`` gain block (8 warps).
 GAIN_BLOCK_THREADS = 256
-
-#: Vertices per ``stream`` block.  With k >= 33 a tile of 8 vertices
-#: gives each of the 256 threads >= 1 (vertex, column) pair.
-GAIN_TILE_VERTICES = 8
-
-#: Shared memory a ``stream`` block may use for its staged edge-id rows
-#: (tile * D int32) and per-vertex losses (tile f32): the 48 KB a block
-#: gets without ``cudaFuncAttributeMaxDynamicSharedMemorySize``.  The
-#: wrapper shrinks the tile for wide incidence rows (D > 1535).
-GAIN_TILE_SMEM_BYTES = 48 * 1024
 
 #: Largest k for which the non-kernel fallback (CPU tensors, or a level
 #: without the dense incidence layout) uses the per-pin segment-sum,
@@ -40,16 +30,27 @@ GAIN_TILE_SMEM_BYTES = 48 * 1024
 #: path scatters at most two columns per pin, O(P).
 SEGSUM_MAX_K = 32
 
-#: Candidates one thread of the rating kernel reduces in order per
-#: level.  Each level leaves at most two open partial sums per chunk, so
-#: a level shrinks the problem 16-fold and C = 2**20 candidates take 5
-#: launches.  The rating kernel is linear in C, so every device
-#: coarsening round is routed to it (no size cut-off, unlike the
-#: reference's quadratic one-hot kernel).
-RATING_CHUNK = 32
+#: Candidates of one tile of the rating kernel's first pass: a block of
+#: 8 warps whose lanes own 4 consecutive candidates each (one 16-byte
+#: load of ids and of each row's values), so 1,024.  The block adds the
+#: parts of a segment across its warps through 8 words of shared memory
+#: a row and one barrier; a segment that crosses tiles leaves one piece
+#: per tile to the second pass, which reads 512 pieces a step: the ghost
+#: pairs' run, 87% of C = 2^20 at ibm08, takes it 2 steps.  The kernel
+#: checks that it is given this value (``csrc/rating.cu``'s ``TILE``).
+#: The rating kernel is linear in C, so every device coarsening round is
+#: routed to it (no size cut-off, unlike the reference's quadratic
+#: one-hot kernel).
+RATING_TILE = 1024
 
-#: Threads of one rating block.
-RATING_BLOCK_THREADS = 256
+#: The most rows of ``vals`` one first-pass block sums (the kernel takes
+#: fewer when there are fewer rows).  The starts and the scan's shape are
+#: found once per tile and reused for these rows, and the rows' loads go
+#: out together.  4 rows of 4 values keep a thread within the 64
+#: registers that let 4 blocks of 256 threads share an SM: the FM step's
+#: shape (119 rows of 16,384 pins) is 17 tiles x 30 row groups = 510
+#: blocks, about one wave on the H100's 132 SMs.
+RATING_ROWS = 4
 
 #: Largest k the connectivity and cut kernels take: they OR one bit per
 #: block into a uint32 mask per edge and count its bits with ``__popc``,

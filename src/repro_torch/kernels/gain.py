@@ -21,8 +21,7 @@ import ctypes
 import torch
 
 from . import build, ref
-from .common import (GAIN_BLOCK_THREADS, GAIN_TILE_SMEM_BYTES,
-                     GAIN_TILE_VERTICES)
+from .common import GAIN_BLOCK_THREADS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,7 +32,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.gain_table_launch.argtypes = [_P, _P, _P, _P] + [_I] * 6 + [_P]
         lib.gain_table_launch.restype = _I
-        lib.gain_stream_launch.argtypes = [_P, _P, _P, _P] + [_I] * 7 + [_P]
+        lib.gain_stream_launch.argtypes = [_P, _P, _P, _P] + [_I] * 6 + [_P]
         lib.gain_stream_launch.restype = _I
         lib.error_string.argtypes = [_I]
         lib.error_string.restype = ctypes.c_char_p
@@ -72,17 +71,9 @@ def _launch(entry: str, wrapper, incident, becomes_internal, was_internal):
     stream = torch.cuda.current_stream(incident.device).cuda_stream
     args = [incident.data_ptr(), becomes_internal.data_ptr(),
             was_internal.data_ptr(), out.data_ptr(), alpha, n, d, m, k]
-    if entry == "table":
-        err = lib.gain_table_launch(*args, GAIN_BLOCK_THREADS, stream)
-    else:
-        # the staged tile (tile * (d + 1) * 4 bytes) must fit the 48 KB a
-        # block gets without an opt-in
-        tile = max(1, min(GAIN_TILE_VERTICES,
-                          GAIN_TILE_SMEM_BYTES // (4 * (d + 1))))
-        if tile * (d + 1) * 4 > GAIN_TILE_SMEM_BYTES:
-            raise ValueError(f"incidence rows of width {d} do not fit the "
-                             "stream kernel's shared memory")
-        err = lib.gain_stream_launch(*args, tile, GAIN_BLOCK_THREADS, stream)
+    launch = (lib.gain_table_launch if entry == "table"
+              else lib.gain_stream_launch)
+    err = launch(*args, GAIN_BLOCK_THREADS, stream)
     build.check(err, f"gain_{entry}_launch", lib)
     wrapper.launches += 1
     return out

@@ -45,11 +45,13 @@ GAIN_SHAPES = [(1, 100, 8, 64, 2), (3, 300, 8, 200, 33),
                (3, 200, 16, 700, 64), (1, 257, 8, 130, 40)]
 
 
-def _gain_inputs(alpha, n, d, m, k, seed):
+def _gain_inputs(alpha, n, d, m, k, seed, trailing=False):
     rng = np.random.default_rng(seed)
     inc = rng.integers(0, m, (n, d)).astype(np.int32)
     inc[rng.random((n, d)) < 0.3] = -1
     inc[rng.random(n) < 0.1] = -1                       # degree-0 vertices
+    if trailing:                  # valid ids first, as the layout builder
+        inc = -np.sort(-inc, axis=1)
     bi = rng.integers(0, 5, (alpha, m, k)).astype(np.float32)
     wi = rng.integers(0, 5, (alpha, m)).astype(np.float32)
     return inc, bi, wi
@@ -444,3 +446,136 @@ def test_embedding_bag_kernel_on_card(card, dtype, combiner):
         embedding_bag.embedding_bag(table, idx, combiner).float(),
         ref.embedding_bag_ref(table, idx, combiner).float(),
         rtol=tol, atol=tol)
+
+
+# --------------------------------------------------------------------------
+# operand checks of the wrappers and the sorted pin edges of the
+# fixed-order sums (host side, no card)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("case", ["dtype", "segs dtype", "shape", "device",
+                                  "layout", "segments"])
+def test_rating_operand_validation(case):
+    """``rating._checked``, which runs before every launch, refuses what
+    the kernel does not take (a CUDA tensor never reaches a plain
+    version, so a wrong operand must raise)."""
+    vals = torch.zeros((2, 10))
+    segs = torch.zeros(10, dtype=torch.int32)
+    assert rating._checked(vals, segs, 3) == (2, 10)
+    bad = {"dtype": (vals.double(), segs, 3),
+           "segs dtype": (vals, segs.long(), 3),
+           "shape": (vals, segs[:9], 3),
+           "device": (vals, segs.to("meta"), 3),
+           "layout": (torch.zeros((10, 2)).t(), segs, 3),
+           "segments": (vals, segs, -1)}[case]
+    with pytest.raises(ValueError):
+        rating._checked(*bad)
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "device", "layout"])
+def test_gain_operand_validation(case):
+    """``gain._checked`` (both entries) refuses what the kernels do not
+    take."""
+    inc = torch.zeros((5, 4), dtype=torch.int32)
+    bi, wi = torch.zeros((2, 7, 3)), torch.zeros((2, 7))
+    assert gain._checked(inc, bi, wi) == (2, 5, 4, 7, 3)
+    bad = {"dtype": (inc.long(), bi, wi),
+           "shape": (inc, bi, wi[:, :6]),
+           "device": (inc, bi, wi.to("meta")),
+           "layout": (inc, torch.zeros((2, 3, 7)).transpose(1, 2), wi)}[case]
+    with pytest.raises(ValueError):
+        gain._checked(*bad)
+
+
+def test_sorted_pin_edges_match_numpy():
+    """``metrics.sorted_pin_edges``: the pins' edge ids in the stable
+    vertex order of ``pins_by_vertex``, as numpy sorts them, so a gather
+    through it gives the pin-order rows permuted into vertex order."""
+    from repro_torch.core import metrics
+    from repro_torch.data.hypergraphs import _modular_netlist
+    hga = _modular_netlist(300, 400, seed=3, n_modules=4, p_local=0.8,
+                           fanout_tail=1.5).arrays(device="cpu")
+    pv, pe = hga.pin_vertex.numpy(), hga.pin_edge.numpy()
+    order = np.argsort(pv, kind="stable")
+    assert_bit_equal(metrics.sorted_pin_edges(hga), pe[order])
+    got_order, vertex = metrics.pins_by_vertex(hga)
+    assert_bit_equal(got_order, order)
+    assert_bit_equal(vertex, pv[order])
+    rows = torch.from_numpy(np.random.default_rng(4).random(
+        (3, hga.m_pad)).astype(np.float32))
+    assert_bit_equal(rows[:, metrics.sorted_pin_edges(hga)],
+                     rows[:, hga.pin_edge.long()][:, order])
+
+
+# --------------------------------------------------------------------------
+# the redesigned kernels on the card (#2-#6): skip without one
+# --------------------------------------------------------------------------
+def _rating_card_case(label):
+    """(segs, vals, S, exact) of the rating kernels' odd shapes: every
+    segment of length 1, a run longer than a tile (integer values, so
+    any order is exact), every id dropped, C = 1 and off the warp width,
+    and the FM step's 119 rows."""
+    rng = np.random.default_rng(len(label))
+
+    def real(alpha, c):
+        return (rng.random((alpha, c)) + 0.1).astype(np.float32)
+
+    if label == "length 1":
+        return np.arange(3001, dtype=np.int32), real(3, 3001), 3001, False
+    if label == "long run":
+        segs = np.concatenate([np.sort(rng.integers(0, 40, 900)),
+                               np.full(40_000, 40),
+                               np.sort(rng.integers(41, 90, 1001))])
+        return (segs.astype(np.int32),
+                rng.integers(0, 4, (2, segs.size)).astype(np.float32), 90,
+                True)
+    if label == "ids below 0":
+        return np.full(777, -1, np.int32), real(2, 777), 500, False
+    if label == "ids >= S":
+        return np.full(777, 900, np.int32), real(2, 777), 500, False
+    if label == "C = 1":
+        return np.full(1, 3, np.int32), real(3, 1), 10, False
+    if label == "C = 1001":
+        segs = np.sort(rng.integers(-5, 950, 1001)).astype(np.int32)
+        return segs, real(4, 1001), 900, False
+    segs = np.sort(rng.integers(0, 1024, 4097)).astype(np.int32)
+    return segs, real(119, 4097), 1024, False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["length 1", "long run", "ids below 0",
+                                   "ids >= S", "C = 1", "C = 1001",
+                                   "alpha 119"])
+def test_rating_kernels_on_card(card, label):
+    """#4 and #3 at odd shapes: rtol 1e-6 of the plain version (equal on
+    integers), batch rows bit-equal to the scalar entry, reruns
+    bit-equal."""
+    segs, vals, s, exact = _rating_card_case(label)
+    segs_t, vals_t = torch.from_numpy(segs).to(card), \
+        torch.from_numpy(vals).to(card)
+    got = rating.rating_segment_sum_batch(vals_t, segs_t, s)
+    assert torch.equal(got, rating.rating_segment_sum_batch(vals_t, segs_t,
+                                                            s))
+    assert torch.equal(got, torch.stack([
+        rating.rating_segment_sum(row, segs_t, s) for row in vals_t]))
+    want = ref.rating_segment_sum_batch_ref(vals_t, segs_t, s)
+    if exact:
+        assert torch.equal(got, want)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,trailing", [
+    ((3, 500, 1, 300, 64), False), ((3, 777, 16, 1500, 64), True),
+    ((3, 300, 8, 200, 33), False), ((2, 600, 16, 900, 100), False),
+    ((1, 300, 24, 513, 1024), False)])
+def test_gain_stream_kernel_on_card(card, shape, trailing):
+    """#2 and #6 (entry ``stream``): equal to the plain versions and to a
+    rerun, with D = 1, trailing pads as the layout builder leaves them,
+    pads mid-row, degree-0 rows and k from 33 to 1024."""
+    inc, bi, wi = (torch.from_numpy(a).to(card) for a in _gain_inputs(
+        *shape, seed=sum(shape), trailing=trailing))
+    got = gain.gain_stream_batch(inc, bi, wi)
+    assert torch.equal(got, ref.gain_stream_batch_ref(inc, bi, wi))
+    assert torch.equal(got, gain.gain_stream_batch(inc, bi, wi))
+    one = gain.gain_stream(inc, bi[-1].contiguous(), wi[-1].contiguous())
+    assert torch.equal(one, ref.gain_stream_ref(inc, bi[-1], wi[-1]))
