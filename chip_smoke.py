@@ -180,12 +180,17 @@ def _bound_ms(nbytes: float, ops: float):
 
 def _gain_inputs(hg, k: int, alpha: int, seed: int, dev):
     """Gain tables of a random population on ``hg``'s padded arrays."""
+    return _gain_tables(hg.arrays(device=dev), k, alpha, seed, dev)
+
+
+def _gain_tables(hga, k: int, alpha: int, seed: int, dev):
+    """Gain tables of a random population on the level ``hga``: returns
+    its incidence layout and the tables ``bi``, ``wi``."""
     import numpy as np
     import torch
     from repro_torch.core import metrics
-    hga = hg.arrays(device=dev)
     if hga.incident is None:
-        raise AssertionError("the finest level has no dense incidence layout")
+        raise AssertionError("the level has no dense incidence layout")
     rng = np.random.default_rng(seed)
     parts = torch.from_numpy(
         rng.integers(0, k, (alpha, hga.n_pad)).astype(np.int32)).to(dev)
@@ -194,11 +199,17 @@ def _gain_inputs(hg, k: int, alpha: int, seed: int, dev):
     return hga.incident, bi.contiguous(), wi.contiguous()
 
 
-# odd shapes (alpha, N, D, M, k) of the gain kernels: k around the warp
-# and column-group widths up to 1024, D = 1, and N off every block size
-GAIN_ODD = [(1, 1000, 8, 700, 2), (3, 1000, 8, 700, 33),
-            (3, 777, 16, 1500, 64), (2, 600, 16, 900, 100),
-            (1, 300, 24, 513, 1024), (3, 500, 1, 300, 64)]
+# odd shapes ((alpha, N, D, M, k), trailing pads) of the gain kernels: k
+# from 1 to 1024 around the lane-group, warp and column-group widths,
+# D = 1, 8, 16 and 24, N off every group and block size, pads mid-row or
+# (trailing) after the valid ids
+GAIN_ODD = [((1, 1000, 8, 700, 2), False), ((3, 1000, 8, 700, 33), False),
+            ((3, 777, 16, 1500, 64), False), ((2, 600, 16, 900, 100), False),
+            ((1, 300, 24, 513, 1024), False), ((3, 500, 1, 300, 64), False),
+            ((3, 777, 16, 1500, 64), True), ((3, 1001, 8, 700, 1), False),
+            ((2, 999, 24, 513, 3), False), ((1, 777, 1, 300, 8), False),
+            ((2, 601, 1, 400, 16), True), ((3, 1003, 16, 900, 16), True),
+            ((2, 517, 24, 700, 31), False), ((3, 1000, 8, 700, 32), True)]
 
 
 def _odd_gain_inputs(alpha, n, d, m, k, seed, dev, trailing=False):
@@ -235,17 +246,16 @@ def check_gain_kernels(report, dev):
     import torch
     from repro_torch.data.hypergraphs import ispd_like
     from repro_torch.kernels import gain, ref
+    # the main-path shapes, each checked; the last k is timed
     cases = {
         "gain_stream": (gain.gain_stream_batch, ref.gain_stream_batch_ref,
-                        ("ibm08_like", 64)),
+                        ("ibm08_like", (64,))),
         "gain_table": (gain.gain_gather_batch, ref.gain_gather_batch_ref,
-                       ("ibm01_like", 16)),
+                       ("ibm01_like", (32, 16))),
     }
-    odd = [(shape, False) for shape in GAIN_ODD] + [
-        ((3, 777, 16, 1500, 64), True)]
-    for name, (kern, plain, (design, k)) in cases.items():
+    for name, (kern, plain, (design, ks)) in cases.items():
         errs = []
-        for i, (shape, trailing) in enumerate(odd):
+        for i, (shape, trailing) in enumerate(GAIN_ODD):
             inc, bi, wi = _odd_gain_inputs(*shape, seed=i, dev=dev,
                                            trailing=trailing)
             got, want = kern(inc, bi, wi), plain(inc, bi, wi)
@@ -255,22 +265,24 @@ def check_gain_kernels(report, dev):
                 raise AssertionError(f"{name} differs from its plain version "
                                      f"(or its rerun) at {shape}")
             errs.append(float((got - want).abs().max()))
-        inc, bi, wi = _gain_inputs(ispd_like(design, 1.0), k, 7, 0, dev)
-        got, want = kern(inc, bi, wi), plain(inc, bi, wi)
-        again = kern(inc, bi, wi)
-        torch.cuda.synchronize()
-        if not (torch.equal(got, want) and torch.equal(got, again)):
-            raise AssertionError(f"{name} differs from its plain version on "
-                                 f"{design} k={k}")
-        errs.append(float((got - want).abs().max()))
-        del got, want, again
+        hg = ispd_like(design, 1.0)
+        for k in ks:
+            inc, bi, wi = _gain_inputs(hg, k, 7, 0, dev)
+            got, want = kern(inc, bi, wi), plain(inc, bi, wi)
+            again = kern(inc, bi, wi)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(got, again)):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"on {design} k={k}")
+            errs.append(float((got - want).abs().max()))
+            del got, want, again
         ms = _graph_ms(lambda: kern(inc, bi, wi))
         plain_ms = _time_ms(lambda: plain(inc, bi, wi), iters=5)
         lib_ms = _time_ms(lambda: ref.gain_gather_embedding_bag(inc, bi))
         bound, by = _gain_bound(inc, bi)
         print(f"[kernel] {name} {design} incident={tuple(inc.shape)} "
-              f"tables={tuple(bi.shape)}: exact at main-path and "
-              f"{len(odd)} odd shapes")
+              f"tables={tuple(bi.shape)}: exact at k in {ks} and at "
+              f"{len(GAIN_ODD)} odd shapes")
         for label, val in (("ms", ms), ("plain_ms", plain_ms),
                            ("library_ms", lib_ms), ("bound_ms", bound)):
             print(f"[kernel] {name} {label} {val!r}")
@@ -291,8 +303,7 @@ def check_gain_one_kernels(report, dev):
         "gain_table_one": (gain.gain_gather, ref.gain_gather_ref,
                            ("ibm01_like", 16)),
     }
-    odd = [((1,) + shape[1:], False) for shape in GAIN_ODD] + [
-        ((1, 777, 16, 1500, 64), True)]
+    odd = [((1,) + shape[1:], trailing) for shape, trailing in GAIN_ODD]
     for name, (kern, plain, (design, k)) in cases.items():
         errs = []
         for i, (shape, trailing) in enumerate(odd):
@@ -1355,32 +1366,65 @@ _LEVEL_FIELDS = ("pin_vertex", "pin_edge", "vertex_weights", "edge_weights",
                  "edge_sizes")
 
 
+def _gain_level(dev):
+    """The first level with at most ``FM_NODE_LIMIT`` vertices of the
+    ibm01_like hierarchy (k 16, seed 0) that the device coarsener builds
+    with its dense incidence layout: a coarse level of the LP rounds that
+    launch #1."""
+    from repro_torch.core.dcoarsen import build_hierarchy
+    from repro_torch.data.hypergraphs import ispd_like
+    hier = build_hierarchy(ispd_like("ibm01_like", 1.0), 16, seed=0,
+                           path="device", device=dev)
+    return next(hga for hga in map(hier.level_arrays,
+                                   range(hier.num_levels))
+                if hga.n <= FM_NODE_LIMIT and hga.incident is not None)
+
+
+def _level_dict(hga) -> dict:
+    return dict({f: getattr(hga, f).cpu() for f in _LEVEL_FIELDS},
+                incident=(None if hga.incident is None
+                          else hga.incident.cpu()), n=hga.n, m=hga.m)
+
+
+def _level_arrays(d: dict, dev):
+    from repro_torch.core.hypergraph import HypergraphArrays
+    inc = d["incident"]
+    return HypergraphArrays(*(d[f].to(dev) for f in _LEVEL_FIELDS),
+                            n=d["n"], m=d["m"],
+                            incident=None if inc is None else inc.to(dev))
+
+
 def save_fm_level(path: str) -> None:
-    """``_fm_level``'s level, Phi and rows to ``path``: the hierarchy
-    depends on the rating kernel's bits, so trees compared on one card
-    read the level built once, here."""
+    """``_fm_level``'s level, Phi and rows, and ``_gain_level``'s level,
+    to ``path``: the hierarchies depend on the rating kernel's bits, so
+    trees compared on one card read the levels built once, here."""
     import torch
-    hga, phi, ew, k = _fm_level(torch.device("cuda"))
-    torch.save(dict({f: getattr(hga, f).cpu() for f in _LEVEL_FIELDS},
-                    n=hga.n, m=hga.m, phi=phi.cpu(), ew=ew.cpu(), k=k), path)
+    dev = torch.device("cuda")
+    hga, phi, ew, k = _fm_level(dev)
+    torch.save(dict(fm=_level_dict(hga), phi=phi.cpu(), ew=ew.cpu(), k=k,
+                    gain=_level_dict(_gain_level(dev))), path)
 
 
 def load_fm_level(path: str, dev):
     import torch
-    from repro_torch.core.hypergraph import HypergraphArrays
     d = torch.load(path)
-    hga = HypergraphArrays(*(d[f].to(dev) for f in _LEVEL_FIELDS),
-                           n=d["n"], m=d["m"])
-    return hga, d["phi"].to(dev), d["ew"].to(dev), d["k"]
+    return (_level_arrays(d["fm"], dev), d["phi"].to(dev), d["ew"].to(dev),
+            d["k"])
+
+
+def load_gain_level(path: str, dev):
+    import torch
+    return _level_arrays(torch.load(path)["gain"], dev)
 
 
 def kernel_times(level_path: str) -> dict:
-    """Times of the kernels this tree's ``repro_torch`` redesigned (#2,
-    #3, #4, #6) at the shapes the kernel phase times them, and #4 at the
-    FM step's shape (the level saved by ``save_fm_level``): the kernel
-    alone and the whole ``_gain_segsum`` with member rows, both in a CUDA
-    graph (``_graph_ms``).  Uses only calls that older trees of the port
-    have too."""
+    """Times of the kernels this tree's ``repro_torch`` redesigned (#1,
+    #2, #3, #4, #5, #6) at the shapes the kernel phase times them, #4 at
+    the FM step's shape (the level saved by ``save_fm_level``; the kernel
+    alone and the whole ``_gain_segsum`` with member rows), and #1 at
+    k 32 and at the coarse level saved there, all in a CUDA graph
+    (``_graph_ms``).  Uses only calls that older trees of the port have
+    too."""
     import torch
     from repro_torch.core import metrics
     from repro_torch.data.hypergraphs import ispd_like
@@ -1408,6 +1452,18 @@ def kernel_times(level_path: str) -> dict:
     inc, bi, wi = _gain_inputs(hg, 64, 1, 0, dev)
     bi, wi = bi[0], wi[0]
     out["gain_stream_one"] = _graph_ms(lambda: gain.gain_stream(inc, bi, wi))
+    hg = ispd_like("ibm01_like", 1.0)
+    for k in (16, 32):
+        inc, bi, wi = _gain_inputs(hg, k, 7, 0, dev)
+        out[f"gain_table k={k}"] = _graph_ms(
+            lambda: gain.gain_gather_batch(inc, bi, wi))
+    inc, bi, wi = _gain_inputs(hg, 16, 1, 0, dev)
+    bi, wi = bi[0], wi[0]
+    out["gain_table_one"] = _graph_ms(lambda: gain.gain_gather(inc, bi, wi))
+    inc, bi, wi = _gain_tables(load_gain_level(level_path, dev), 16, 7, 0,
+                               dev)
+    out[f"gain_table coarse n={inc.shape[0]} D={inc.shape[1]}"] = _graph_ms(
+        lambda: gain.gain_gather_batch(inc, bi, wi))
     return out
 
 
@@ -1424,12 +1480,19 @@ def run_kernel_compare(parent_src: str) -> None:
     and on this one, in child processes on this card, in the order
     parent, this, this, parent; then each time's mean per tree and the
     parent's mean over this tree's."""
+    import torch
     here = os.path.join(ROOT, "src")
     runs = {"parent": [], "this": []}
     level = tempfile.NamedTemporaryFile(suffix=".pt", dir=ROOT, delete=False)
     level.close()
     try:
         save_fm_level(level.name)
+        dev = torch.device("cuda")
+        inc, bi, _ = _gain_tables(load_gain_level(level.name, dev), 16, 7,
+                                  0, dev)
+        print(f"[compare] gain_table coarse n={inc.shape[0]} "
+              f"D={inc.shape[1]} bound_ms {_gain_bound(inc, bi)[0]!r}")
+        del inc, bi
         for label, src in (("parent", parent_src), ("this", here),
                            ("this", here), ("parent", parent_src)):
             proc = subprocess.run(

@@ -8,20 +8,24 @@ either way.
 """
 from __future__ import annotations
 
-#: Threads in a warp, the unit the ``table`` gain kernel assigns to one
+#: Threads in a warp, the most lanes the gain kernel gives one
 #: (member, vertex) row.
 WARP_LANES = 32
 
-#: Largest k routed to the ``table`` gain kernel.  One warp owns one
-#: (member, vertex) row with its lanes over the k columns: at
-#: k <= WARP_LANES every lane holds exactly one column and the row is
-#: done in one pass over the vertex's incident edges.  Above it the
-#: ``stream`` kernel lays a row's columns over a group of 8, 16 or 32
-#: lanes with 16-byte loads (four columns a lane where k allows it), so a
-#: warp covers 128 columns a pass.
+#: Largest k routed to the ``table`` entry of the gain kernel, ``stream``
+#: above it.  On the card both entries launch the one kernel of
+#: ``csrc/gain.cu``: a group of G lanes a row, 4 columns a lane where k
+#: and the alignment allow, G the smallest power of two that covers k in
+#: one pass (k 16: 4 lanes, 8 rows a warp; k 32: 8 lanes; above 128
+#: columns, 32 lanes in several passes).  So the split no longer changes
+#: what the card runs; it keeps the reference's two entries, their
+#: launch counts and their plain versions (the ``table`` one gathers
+#: [alpha, N, D, k] at once, the ``stream`` one sweeps edge tiles).  It
+#: stays at WARP_LANES: k <= 32 is the widest at which one warp holds a
+#: row in one pass at one column a lane, the reference's ``table`` width.
 GAIN_WARP_MAX_K = WARP_LANES
 
-#: Threads of one ``table`` or ``stream`` gain block (8 warps).
+#: Threads of one gain block (8 warps).
 GAIN_BLOCK_THREADS = 256
 
 #: Largest k for which the non-kernel fallback (CPU tensors, or a level

@@ -5,11 +5,13 @@
 
     gains[a, v, :] = sum_d bi[a, inc[v, d], :] - sum_d wi[a, inc[v, d]]
 
-for the whole population in one launch (``csrc/gain.cu`` says how each
-maps to the card).  ``gain_gather`` and ``gain_stream`` are the
-one-member forms (``gain_gather_pallas`` / ``gain_stream_pallas``) that
-the scalar LP tier calls: tables ``bi[M, k]``, ``wi[M]`` -> ``[N, k]``,
-the same two entries launched with one member.  On CPU tensors each
+for the whole population in one launch of the one kernel of
+``csrc/gain.cu`` (the file says how it maps to the card); the entries
+differ in the k that ``ops.gain_path`` routes to them and in their
+plain versions.  ``gain_gather`` and ``gain_stream`` are the one-member
+forms (``gain_gather_pallas`` / ``gain_stream_pallas``) that the scalar
+LP tier calls: tables ``bi[M, k]``, ``wi[M]`` -> ``[N, k]``, the same
+kernel launched with one member.  On CPU tensors each
 wrapper runs its plain version from ``ref``; on CUDA tensors it launches
 its kernel or raises.  Each wrapper counts its kernel launches in its
 ``launches`` attribute.
@@ -30,10 +32,8 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("gain")
     if not getattr(lib, "_typed", False):
-        lib.gain_table_launch.argtypes = [_P, _P, _P, _P] + [_I] * 6 + [_P]
-        lib.gain_table_launch.restype = _I
-        lib.gain_stream_launch.argtypes = [_P, _P, _P, _P] + [_I] * 6 + [_P]
-        lib.gain_stream_launch.restype = _I
+        lib.gain_launch.argtypes = [_P, _P, _P, _P] + [_I] * 6 + [_P]
+        lib.gain_launch.restype = _I
         lib.error_string.argtypes = [_I]
         lib.error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -71,10 +71,8 @@ def _launch(entry: str, wrapper, incident, becomes_internal, was_internal):
     stream = torch.cuda.current_stream(incident.device).cuda_stream
     args = [incident.data_ptr(), becomes_internal.data_ptr(),
             was_internal.data_ptr(), out.data_ptr(), alpha, n, d, m, k]
-    launch = (lib.gain_table_launch if entry == "table"
-              else lib.gain_stream_launch)
-    err = launch(*args, GAIN_BLOCK_THREADS, stream)
-    build.check(err, f"gain_{entry}_launch", lib)
+    err = lib.gain_launch(*args, GAIN_BLOCK_THREADS, stream)
+    build.check(err, f"gain_launch (entry {entry})", lib)
     wrapper.launches += 1
     return out
 

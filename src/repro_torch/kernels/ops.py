@@ -15,12 +15,12 @@ path          chosen when
 ============  ==========================================================
 ``"table"``   the dense incidence layout is on a CUDA device and
               ``k <= GAIN_WARP_MAX_K``: kernel ``gain_gather_batch``
-              (one warp per (member, vertex) row), or ``gain_gather``
-              for the scalar LP tier's one member
+              (a group of lanes sized to k per (member, vertex) row,
+              16-byte loads), or ``gain_gather`` for the scalar LP
+              tier's one member
 ``"stream"``  the layout is on a CUDA device and k is larger: kernel
-              ``gain_stream_batch`` (a group of lanes per (member,
-              vertex) row, 16-byte column loads), or ``gain_stream`` for
-              one member
+              ``gain_stream_batch`` (the same kernel of ``gain.cu``), or
+              ``gain_stream`` for one member
 ``"segsum"``  no layout on a CUDA device (CPU tensors, or a level whose
               layout the expansion guard dropped), ``k <= SEGSUM_MAX_K``:
               per-pin gather + segment-sum

@@ -40,9 +40,11 @@ from repro_torch.kernels import (build, connectivity, embedding_bag, gain,
                                  ops, rating, ref)
 
 # (alpha, N, D, M, k): N off the 256-row block, degree-0 rows, k around
-# the warp width
+# the warp width, and the ``table`` widths of the main path (ibm01's
+# D = 16 rows at k = 16) and k = 1
 GAIN_SHAPES = [(1, 100, 8, 64, 2), (3, 300, 8, 200, 33),
-               (3, 200, 16, 700, 64), (1, 257, 8, 130, 40)]
+               (3, 200, 16, 700, 64), (1, 257, 8, 130, 40),
+               (2, 300, 16, 200, 16), (2, 130, 8, 90, 1)]
 
 
 def _gain_inputs(alpha, n, d, m, k, seed, trailing=False):
@@ -561,6 +563,30 @@ def test_rating_kernels_on_card(card, label):
     if exact:
         assert torch.equal(got, want)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,trailing", [
+    ((3, 1001, 8, 700, 1), False), ((2, 999, 24, 513, 3), False),
+    ((1, 777, 1, 300, 8), False), ((2, 601, 1, 400, 16), True),
+    ((3, 1003, 16, 900, 16), True), ((2, 517, 24, 700, 31), False),
+    ((3, 1000, 8, 700, 32), True), ((1, 300, 24, 513, 1024), False)])
+def test_gain_table_kernel_on_card(card, shape, trailing):
+    """#1 and #5 (entry ``table``): equal to the plain versions and to a
+    rerun at k from 1 to 32 (and 1024, which ``REPRO_GAIN_PATH=table``
+    may send there), D = 1, 8 and 24, N off every group and block size,
+    trailing pads as the layout builder leaves them, pads mid-row and
+    degree-0 rows."""
+    inc, bi, wi = (torch.from_numpy(a).to(card) for a in _gain_inputs(
+        *shape, seed=sum(shape), trailing=trailing))
+    got = gain.gain_gather_batch(inc, bi, wi)
+    assert torch.equal(got, ref.gain_gather_batch_ref(inc, bi, wi))
+    assert torch.equal(got, gain.gain_gather_batch(inc, bi, wi))
+    # the last member's tables, off the 16-byte alignment when M*k is odd
+    one = gain.gain_gather(inc, bi[-1].contiguous(), wi[-1].contiguous())
+    assert torch.equal(one, ref.gain_gather_ref(inc, bi[-1], wi[-1]))
+    assert torch.equal(one, gain.gain_gather(inc, bi[-1].contiguous(),
+                                             wi[-1].contiguous()))
 
 
 @pytest.mark.cuda
