@@ -17,35 +17,42 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    and every row of the batched rating kernel bit-equal to the scalar
    kernel on that row, also at the shape of mutation's FM steps; time
    kernel (the gain and rating kernels replayed in a CUDA graph, as the
-   FM steps run them), plain version and the library yardstick, and
-   compute the least time the card could take;
-4. a small instance refined on the card and on the CPU under host
+   FM steps run them; the connectivity and cut kernels in a CUDA graph
+   that rotates over copies of the pin matrix larger than twice the L2,
+   so their pins come from device memory), plain version and the
+   library yardstick, and compute the least time the card could take;
+4. the tests marked ``cuda`` in ``tests/test_torch_card.py``, run by
+   pytest in a child process (``--noconftest``: the suite's conftest
+   imports JAX, which this machine need not have); any failure, error or
+   skip, or fewer passes than cases marked ``cuda``, fails the phase;
+5. a small instance refined on the card and on the CPU under host
    coarsening must give the same partition and cut;
-5. the memetic-off paths: ``impart_partition`` without recombination,
+6. the memetic-off paths: ``impart_partition`` without recombination,
    mutation and V-cycle on ``ispd_like("ibm08_like")`` at k=64 (stream
    gain kernel) and on ``ispd_like("ibm01_like")`` at k=16 (table gain
    kernel);
-6. the memetic path: ``impart_partition`` on ``ibm08_like`` at k=64 with
+7. the memetic path: ``impart_partition`` on ``ibm08_like`` at k=64 with
    the reference defaults (alpha 7, beta 7, recombination, mutation, one
    final V-cycle), with its recombination branches counted and its time
    split into recombination, mutation, final V-cycle and the rest;
-7. the partition CLI: ``python -m repro_torch.launch.partition --method
+8. the partition CLI: ``python -m repro_torch.launch.partition --method
    multilevel`` in a child process on ``ibm08_like`` (k=64, one-member
    stream kernel) and ``ibm01_like`` (k=16, one-member table kernel); its
    saved assignment is reloaded and checked;
-8. the public kernel ops (``kernels.ops.connectivity``, ``cutsize`` and
+9. the public kernel ops (``kernels.ops.connectivity``, ``cutsize`` and
    ``embedding_bag``): connectivity and cut of a k=32 partition of
    ``ibm08_like``'s pin matrix, and one DLRM embedding bag (26 sparse
    features x 65,536 bags, D=128, the MLPerf cardinalities capped at
    2**20 rows);
-9. the bandit operator schedule on ``ibm01_like`` (k=16, the reference
+10. the bandit operator schedule on ``ibm01_like`` (k=16, the reference
    defaults): the static schedule's wall W, a ``sched="bandit"`` run with
    ``time_budget_s=W``, and the replay of its trace after a JSON
    round-trip, which must give the live partition, cut and arm sequence
    bit for bit.
 
-The kernel phase also holds the connectivity and cut kernels (#7/#8) and
-the embedding bag (#9) against their plain versions, and checks that
+The kernel phase also holds the connectivity and cut kernels (#7/#8, at
+the reference's sweeps and at ``CUT_ODD``'s odd shapes) and the
+embedding bag (#9) against their plain versions, and checks that
 every sum of mutation's real-valued reweights gives the same bits in two
 runs on the card (``contract_arrays(ew_pop=)``, the gain assembly on the
 segsum and compact paths, one graphed FM pass with member rows).
@@ -57,16 +64,17 @@ its cut once more on the card through ``ops.connectivity`` and
 the ops route), which must agree with the host.
 
 ``--phases`` takes a comma list of
-``kernels,parity,off,memetic,cli,ops,sched`` (default: all; empty for
-none) for runs that debug one phase; the kernels line is only printed
+``kernels,cardtests,parity,off,memetic,cli,ops,sched`` (default: all;
+empty for none) for runs that debug one phase; the kernels line is only printed
 when every phase ran.  ``--repair-cost=DIR`` then times the static
 memetic run of the ``sched`` phase with its mutation seconds on the
 package under ``DIR`` (the ``src`` of a tree before the fixed-order sums
 of mutation's reweights) and on this one, in child processes, in the
 order DIR, this, this, DIR; ``--kernel-compare=DIR`` times the kernels
-redesigned since such a tree (``kernel_times``: #2, #3, #4 and #6 at the
-kernel phase's shapes, and #4 at the FM step's shape in a CUDA graph) on
-DIR and on this one, in the same order.  With ``--profile`` the script
+redesigned since such a tree (``kernel_times``: #1 to #8 at the kernel
+phase's shapes, #4 also at the FM step's shape, #7 and #8 warm and cold,
+all in a CUDA graph) on DIR and on this one, in the same order; it may
+be given more than once.  With ``--profile`` the script
 then splits each memetic-off run into its phases (coarsening, initial
 partition, LP, FM; host clock around synchronized work) and traces the
 ibm08 run with ``torch.profiler`` to report the device's busy share and
@@ -79,6 +87,7 @@ printing any result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -92,6 +101,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # tensor cores, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+L2_BYTES = 50 * 2 ** 20
 
 KERNEL_META = {
     "gain_table": ("src/repro_torch/kernels/csrc/gain.cu",
@@ -113,7 +123,8 @@ KERNEL_META = {
     "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag.py:66"),
 }
-PHASES = ("kernels", "parity", "off", "memetic", "cli", "ops", "sched")
+PHASES = ("kernels", "cardtests", "parity", "off", "memetic", "cli", "ops",
+          "sched")
 
 # the largest level FM refines (``refine.refine_population``'s default)
 FM_NODE_LIMIT = 4096
@@ -170,6 +181,18 @@ def _graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (calls * replays)
+
+
+def _graph_cold_ms(fn, operand) -> float:
+    """``_graph_ms`` of ``fn(x)`` over enough copies ``x`` of ``operand``
+    that together they hold at least twice the card's L2: the captured
+    calls take the copies in turn, so each call finds its operand evicted
+    and reads it from device memory, as the first touch does (a graph
+    replaying one operand reads it from L2 when it fits there)."""
+    copies = [operand.clone()
+              for _ in range(-(-2 * L2_BYTES // operand.nbytes))]
+    turn = itertools.cycle(copies)
+    return _graph_ms(lambda: fn(next(turn)), calls=3 * len(copies))
 
 
 def _bound_ms(nbytes: float, ops: float):
@@ -659,51 +682,114 @@ def _connectivity_checked(pins, part, iw, rw, k: int, what) -> float:
     return err
 
 
+# odd shapes (M, S, N, k, layout) of #7/#8 beyond the reference's
+# sweeps: S = 1, 5 and 12 (one id a lane where S is not a multiple of 4)
+# and 8, 64, 128 and 256 (16-byte loads, 256 in two rounds), M = 1 and M
+# off the group, block and one-wave sizes, pins as the layout builder
+# leaves them ("trailing") or pads anywhere ("mid"), rows all pad, ids
+# >= N, block ids outside [0, k) ("bad blocks") at k = 1 and 32, and
+# ("view") a pins view 4 bytes into its storage, off the 16-byte
+# alignment
+CUT_ODD = [
+    (1, 1, 10, 2, "mid"), (1001, 1, 500, 3, "mid"), (3001, 5, 2000, 7, "mid"),
+    (2049, 12, 1000, 32, "mid"), (1, 64, 10, 4, "trailing"),
+    (4097, 8, 3000, 16, "trailing"), (33_799, 64, 40_000, 32, "trailing"),
+    (777, 128, 5000, 32, "mid"), (515, 256, 5000, 32, "trailing"),
+    (2000, 64, 800, 1, "bad blocks"), (2000, 8, 800, 32, "bad blocks"),
+    (3001, 8, 2000, 32, "view"), (3001, 12, 2000, 32, "view"),
+    (3001, 64, 2000, 32, "view")]
+
+
+def _odd_cut_inputs(m, s, n, k, layout, rng, dev):
+    import numpy as np
+    import torch
+    pins = rng.integers(0, n + n // 10 + 1, (m, s)).astype(np.int32)
+    pins[rng.random((m, s)) < 0.4] = -1
+    pins[rng.random(m) < 0.1] = -1                         # rows all pad
+    if layout in ("trailing", "view"):
+        pins = -np.sort(-pins, axis=1)
+    lo, hi = (-3, k + 3) if layout == "bad blocks" else (0, k)
+    part = torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32)).to(dev)
+    if layout == "view":
+        flat = torch.from_numpy(np.concatenate([[-1], pins.ravel()]).astype(
+            np.int32)).to(dev)
+        pins_t = flat[1:].view(m, s)
+        if pins_t.data_ptr() % 16 != 4:
+            raise AssertionError("the pins view is not 4 bytes off 16")
+    else:
+        pins_t = torch.from_numpy(pins).to(dev)
+    iw = torch.from_numpy(rng.integers(0, 9, m).astype(np.float32)).to(dev)
+    rw = torch.from_numpy((rng.random(m) + 0.5).astype(np.float32)).to(dev)
+    return pins_t, part, iw, rw
+
+
 def check_connectivity_kernels(report, dev):
-    """Kernels #7/#8 at the reference's sweeps, an odd edge count, and the
-    pin matrices of ibm08_like (k=32) and ibm01_like (k=16); timed at
-    ibm08_like."""
+    """Kernels #7/#8 at the reference's sweeps, at the odd shapes of
+    ``CUT_ODD``, and at the pin matrices of ibm08_like (k=32) and
+    ibm01_like (k=16); the cut also replayed in a CUDA graph.  Timed at
+    ibm08_like: eager (20 launches between events), warm in a CUDA
+    graph (the pins read from L2) and cold in one (``_graph_cold_ms``,
+    the pins from device memory), which is ``ms``."""
     import numpy as np
     import torch
     from repro_torch.kernels import connectivity, ref
     rng = np.random.default_rng(7)
     errs = []
-    odd = [(512, 8, 300, 2), (512, 16, 1000, 8), (1024, 32, 4096, 32),
-           (512, 128, 512, 17), (130, 8, 300, 5), (512, 8, 256, 4),
-           (2048, 16, 2048, 16)]
-    for m, s, n, k in odd:
+    sweep = [(512, 8, 300, 2), (512, 16, 1000, 8), (1024, 32, 4096, 32),
+             (512, 128, 512, 17), (130, 8, 300, 5), (512, 8, 256, 4),
+             (2048, 16, 2048, 16)]
+    for m, s, n, k in sweep:
         pins = torch.from_numpy(rng.integers(-1, n, (m, s)).astype(
             np.int32)).to(dev)
         part = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).to(dev)
         iw = torch.from_numpy(rng.integers(0, 9, m).astype(np.float32)).to(dev)
         rw = torch.from_numpy(rng.random(m).astype(np.float32)).to(dev)
         errs.append(_connectivity_checked(pins, part, iw, rw, k, (m, s, n, k)))
+    for case in CUT_ODD:
+        pins, part, iw, rw = _odd_cut_inputs(*case, rng, dev)
+        errs.append(_connectivity_checked(pins, part, iw, rw, case[3], case))
     for design, k in (("ibm01_like", 16), ("ibm08_like", 32)):
         hg, pins, part, iw, rw = _pin_inputs(design, k, 0, dev)
         errs.append(_connectivity_checked(pins, part, iw, rw, k, design))
-    # ibm08_like (the last one) is the timed shape
+    # ibm08_like (the last one) is the timed shape; its cut replays bit
+    # for bit in a CUDA graph
+    eager = connectivity.cutsize(pins, part, rw, k)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graphed = connectivity.cutsize(pins, part, rw, k)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(graphed, eager):
+            raise AssertionError("cutsize replayed in a CUDA graph differs "
+                                 "from its eager launch")
+    del graph
     m, s = pins.shape
     valid = int((pins >= 0).sum())
     # each input read once, each output written once: the pin matrix, the
     # partition [n], then lambda [m] out, or w [m] in and the cut out
     in_bytes = m * s * 4 + part.shape[0] * 4
     cases = {
-        "connectivity": (lambda: connectivity.connectivity(pins, part, k),
+        "connectivity": (lambda x: connectivity.connectivity(x, part, k),
                          lambda: ref.connectivity_ref(pins, part, k),
                          in_bytes + m * 4, 0.0),
-        "cutsize": (lambda: connectivity.cutsize(pins, part, rw, k),
+        "cutsize": (lambda x: connectivity.cutsize(x, part, rw, k),
                     lambda: ref.cutsize_ref(pins, part, rw, k),
                     in_bytes + m * 4 + 4, max(errs)),
     }
     for name, (kern, plain, nbytes, err) in cases.items():
-        ms = _time_ms(kern)
+        eager_ms = _time_ms(lambda: kern(pins))
+        warm_ms = _graph_ms(lambda: kern(pins))
+        ms = _graph_cold_ms(kern, pins)
         plain_ms = _time_ms(plain, iters=5)
         bound, by = _bound_ms(nbytes, valid)
         print(f"[kernel] {name} ibm08_like pins={tuple(pins.shape)} k={k}: "
-              f"equal to its plain version at main-path and {len(odd)} odd "
-              "shapes (cutsize: integer weights equal, real weights rel "
-              "1e-5 and bit-stable)")
-        for label, val in (("ms", ms), ("plain_ms", plain_ms),
+              f"equal to its plain version at main-path, {len(sweep)} sweep "
+              f"and {len(CUT_ODD)} odd shapes (cutsize: integer weights "
+              "equal, real weights rel 1e-5, bit-stable over two launches "
+              "and in a CUDA graph); ms is the cold graph time")
+        for label, val in (("ms", ms), ("warm_graph_ms", warm_ms),
+                           ("eager_ms", eager_ms), ("plain_ms", plain_ms),
                            ("library_ms", None), ("bound_ms", bound)):
             print(f"[kernel] {name} {label} {val!r}")
         report[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -863,6 +949,48 @@ def check_fixed_order_sums(dev):
           f"segsum gains equal in two runs: {atomics_equal}")
     del a, b
     torch.cuda.empty_cache()
+
+
+CARD_TESTS = os.path.join("tests", "test_torch_card.py")
+
+
+def run_card_tests() -> None:
+    """Phase ``cardtests``: the tests marked ``cuda`` in
+    ``tests/test_torch_card.py``, run by pytest in a child process on this
+    card.  ``--noconftest`` keeps out ``tests/conftest.py``, which imports
+    JAX (absent here).  Fails on any failure, error or skip, and when the
+    run counts fewer passes than the module has cases marked ``cuda``
+    (counted by a collection of the same selection)."""
+    import xml.etree.ElementTree as ET
+    cmd = [sys.executable, "-m", "pytest", "-q", "--noconftest", "-p",
+           "no:cacheprovider", "-m", "cuda", CARD_TESTS]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    listed = subprocess.run(cmd + ["--collect-only"], capture_output=True,
+                            text=True, cwd=ROOT, env=env, timeout=300)
+    marked = sum("::" in line for line in listed.stdout.splitlines())
+    if listed.returncode != 0 or marked == 0:
+        raise AssertionError(f"collecting {CARD_TESTS} exited "
+                             f"{listed.returncode} with {marked} cases:\n"
+                             f"{listed.stdout[-3000:]}{listed.stderr[-2000:]}")
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        xml = os.path.join(tmp, "card.xml")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + [f"--junitxml={xml}"], capture_output=True,
+                              text=True, cwd=ROOT, env=env, timeout=900)
+        wall = time.perf_counter() - t0
+        root = ET.parse(xml).getroot() if os.path.exists(xml) else None
+    suite = root if root is None or root.tag == "testsuite" else root[0]
+    count = {key: int(suite.get(key, 0)) if suite is not None else 0
+             for key in ("tests", "failures", "errors", "skipped")}
+    passed = (count["tests"] - count["failures"] - count["errors"]
+              - count["skipped"])
+    if (proc.returncode != 0 or count["failures"] or count["errors"]
+            or count["skipped"] or passed < marked):
+        raise AssertionError(
+            f"card tests: exit {proc.returncode}, {count}, {marked} cases "
+            f"marked cuda:\n{proc.stdout[-6000:]}{proc.stderr[-2000:]}")
+    print(f"[cardtests] {passed} passed, {count['skipped']} skipped "
+          f"({marked} cases marked cuda in {CARD_TESTS}; {wall!r} s)")
 
 
 def check_small_parity():
@@ -1418,19 +1546,27 @@ def load_gain_level(path: str, dev):
 
 
 def kernel_times(level_path: str) -> dict:
-    """Times of the kernels this tree's ``repro_torch`` redesigned (#1,
-    #2, #3, #4, #5, #6) at the shapes the kernel phase times them, #4 at
-    the FM step's shape (the level saved by ``save_fm_level``; the kernel
-    alone and the whole ``_gain_segsum`` with member rows), and #1 at
-    k 32 and at the coarse level saved there, all in a CUDA graph
-    (``_graph_ms``).  Uses only calls that older trees of the port have
-    too."""
+    """Times of the kernels this tree's ``repro_torch`` redesigned (#1 to
+    #8) at the shapes the kernel phase times them, #4 at the FM step's
+    shape (the level saved by ``save_fm_level``; the kernel alone and the
+    whole ``_gain_segsum`` with member rows), and #1 at k 32 and at the
+    coarse level saved there, all in a CUDA graph (``_graph_ms``); #7 and
+    #8 both warm (the pins read from L2) and cold (``_graph_cold_ms``).
+    Uses only calls that older trees of the port have too."""
     import torch
     from repro_torch.core import metrics
     from repro_torch.data.hypergraphs import ispd_like
-    from repro_torch.kernels import gain, rating
+    from repro_torch.kernels import connectivity, gain, rating
     dev = torch.device("cuda")
     out = {}
+    _, pins, part, _, rw = _pin_inputs("ibm08_like", 32, 0, dev)
+    for name, kern in (
+            ("connectivity", lambda x: connectivity.connectivity(x, part,
+                                                                 32)),
+            ("cutsize", lambda x: connectivity.cutsize(x, part, rw, 32))):
+        out[f"{name} warm (graph)"] = _graph_ms(lambda: kern(pins))
+        out[f"{name} cold (graph)"] = _graph_cold_ms(kern, pins)
+    del pins, part, rw
     hga, phi, ew, _ = load_fm_level(level_path, dev)
     rows, vertex = _fm_rows(hga, phi, ew)
     n_pad = hga.n_pad
@@ -1481,6 +1617,7 @@ def run_kernel_compare(parent_src: str) -> None:
     parent, this, this, parent; then each time's mean per tree and the
     parent's mean over this tree's."""
     import torch
+    from repro_torch.data.hypergraphs import ispd_like
     here = os.path.join(ROOT, "src")
     runs = {"parent": [], "this": []}
     level = tempfile.NamedTemporaryFile(suffix=".pt", dir=ROOT, delete=False)
@@ -1492,7 +1629,18 @@ def run_kernel_compare(parent_src: str) -> None:
                                   0, dev)
         print(f"[compare] gain_table coarse n={inc.shape[0]} "
               f"D={inc.shape[1]} bound_ms {_gain_bound(inc, bi)[0]!r}")
+        inc, bi, _ = _gain_inputs(ispd_like("ibm01_like", 1.0), 32, 7, 0, dev)
+        print(f"[compare] gain_table k=32 bound_ms "
+              f"{_gain_bound(inc, bi)[0]!r}")
         del inc, bi
+        _, pins, part, _, _ = _pin_inputs("ibm08_like", 32, 0, dev)
+        m, s = pins.shape
+        nbytes = m * s * 4 + part.shape[0] * 4 + m * 4
+        valid = int((pins >= 0).sum())
+        print(f"[compare] connectivity bound_ms "
+              f"{_bound_ms(nbytes, valid)[0]!r}, cutsize bound_ms "
+              f"{_bound_ms(nbytes + 4, valid)[0]!r}")
+        del pins, part
         for label, src in (("parent", parent_src), ("this", here),
                            ("this", here), ("parent", parent_src)):
             proc = subprocess.run(
@@ -1647,6 +1795,8 @@ def main() -> int:
         check_connectivity_kernels(report, dev)
         check_embedding_bag_kernel(report, dev)
         check_fixed_order_sums(dev)
+    if "cardtests" in phases:
+        run_card_tests()
     if "parity" in phases:
         check_small_parity()
     launches = {name: 0 for name in KERNEL_META}

@@ -1,6 +1,7 @@
 """Routing and sizing constants of the port's kernels, derived from
-Hopper's limits (H100: 32-lane warps, 227 KB of shared memory a block of
-which 48 KB without an opt-in, 50 MB of L2).  None of the reference's
+Hopper's limits (H100 SXM: 132 SMs of 2,048 resident threads and 65,536
+registers each, 32-lane warps, 227 KB of shared memory a block of which
+48 KB without an opt-in, 50 MB of L2).  None of the reference's
 VMEM constants (``repro/kernels/common.py``) carries over: the TPU split
 between a VMEM-resident table and a streamed one does not exist here,
 because the per-member edge tables are read from device memory or L2
@@ -11,6 +12,11 @@ from __future__ import annotations
 #: Threads in a warp, the most lanes the gain kernel gives one
 #: (member, vertex) row.
 WARP_LANES = 32
+
+#: Streaming multiprocessors of the H100 SXM, and the threads one of them
+#: keeps resident.
+H100_SMS = 132
+SM_THREADS = 2048
 
 #: Largest k routed to the ``table`` entry of the gain kernel, ``stream``
 #: above it.  On the card both entries launch the one kernel of
@@ -62,3 +68,42 @@ RATING_ROWS = 4
 #: ``ops.cutsize`` route larger k to the plain versions, as the
 #: reference's ops do.
 KERNEL_MAX_K = 32
+
+#: Threads of one connectivity or cut block (8 warps; ``kThreads`` in
+#: ``csrc/connectivity.cu``).
+CONN_BLOCK_THREADS = 256
+
+#: Blocks of the connectivity and cut kernels one SM keeps resident:
+#: 2,048 / 256 = 8.  The kernels' ``__launch_bounds__(256, 8)`` hold them
+#: to 65,536 / 2,048 = 32 registers a thread, so all 8 fit (``kMinBlocks``).
+CONN_BLOCKS_PER_SM = SM_THREADS // CONN_BLOCK_THREADS
+
+#: Rows a lane group of the connectivity and cut kernels takes a step,
+#: all their pin loads issued before the first gather (``kRows``).
+CONN_ROWS = 2
+
+#: One resident wave of the connectivity and cut kernels (132 x 8 =
+#: 1,056 blocks): the most blocks they launch, and the cut's partials.
+CONN_WAVE_BLOCKS = H100_SMS * CONN_BLOCKS_PER_SM
+
+
+def conn_lanes(s: int) -> int:
+    """Lanes of the group that owns a pin row of S slots on the kernels'
+    16-byte path: the smallest power of two covering S / 4 ids, at most a
+    warp (S = 8: 2, S = 64: 16, S >= 128: 32)."""
+    g = 1
+    while g < WARP_LANES and 4 * g < s:
+        g *= 2
+    return g
+
+
+def conn_grid(m: int, s: int) -> int:
+    """Blocks of the connectivity and cut kernels for pins [M, S]: one
+    per ``CONN_BLOCK_THREADS / conn_lanes(S) * CONN_ROWS`` rows, at most
+    one resident wave, a grid-stride loop beyond it (ibm08's 50,688 x 64:
+    1,584 wanted, 1,056 launched).  A function of (M, S) alone, so the
+    cut adds in the same order on every launch; the one-id path (S not a
+    multiple of 4, or pins off the 16-byte alignment) takes the same grid
+    with wider groups and more steps."""
+    rows = CONN_BLOCK_THREADS // conn_lanes(s) * CONN_ROWS
+    return max(1, min(-(-m // rows), CONN_WAVE_BLOCKS))

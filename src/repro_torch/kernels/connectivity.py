@@ -6,9 +6,10 @@
 distinct blocks among the valid pins of every row of the padded pin
 matrix ``pins[M, S]`` (pad = -1); ``cutsize(pins, part, w, k)`` the
 weight of the edges with lambda(e) > 1.  Both take k <= ``KERNEL_MAX_K``
-(a uint32 block mask per edge, ``csrc/connectivity.cu``).  The cut is
-summed without float atomics, in an order fixed by M: reruns are
-bit-identical, and integer weights give the plain version's value
+(a uint32 block mask per edge, ``csrc/connectivity.cu``).  The grid
+is ``common.conn_grid(M, S)``, at most one resident wave.  The cut is
+summed without float atomics, in an order fixed by the operands: reruns
+are bit-identical, and integer weights give the plain version's value
 exactly.  On CPU tensors the wrappers run the plain versions from
 ``ref``; on CUDA tensors they launch or raise.  Each wrapper counts its
 kernel launches in its ``launches`` attribute.
@@ -20,7 +21,7 @@ import ctypes
 import torch
 
 from . import build, ref
-from .common import KERNEL_MAX_K
+from .common import CONN_WAVE_BLOCKS, KERNEL_MAX_K, conn_grid
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -29,12 +30,13 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = build.load("connectivity")
     if not getattr(lib, "_typed", False):
-        lib.connectivity_launch.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P]
+        lib.connectivity_launch.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I,
+                                            _P]
         lib.connectivity_launch.restype = _I
         lib.cutsize_partials.argtypes = [_I]
         lib.cutsize_partials.restype = _I
         lib.cutsize_launch.argtypes = ([_P, _I, _I, _P, _I, _I]
-                                       + [_P] * 5)
+                                       + [_P] * 4 + [_I, _P])
         lib.cutsize_launch.restype = _I
         lib.error_string.argtypes = [_I]
         lib.error_string.restype = ctypes.c_char_p
@@ -72,7 +74,7 @@ def connectivity(pins: torch.Tensor, part: torch.Tensor,
     lib = _lib()
     err = lib.connectivity_launch(
         pins.data_ptr(), m, s, part.data_ptr(), n, k, lam.data_ptr(),
-        torch.cuda.current_stream(pins.device).cuda_stream)
+        conn_grid(m, s), torch.cuda.current_stream(pins.device).cuda_stream)
     build.check(err, "connectivity_launch", lib)
     connectivity.launches += 1
     return lam
@@ -82,13 +84,14 @@ _SCRATCH: dict = {}
 
 
 def _cut_scratch(lib: ctypes.CDLL, dev: torch.device):
-    """The cut kernel's per-block partials (as many as its largest grid)
-    and its ticket, one pair per device.  The ticket starts at zero and
-    every launch leaves it at zero; calls on one device share the pair,
-    so they must be ordered on one stream, as the port's calls are."""
+    """The cut kernel's per-block partials (for its largest grid, one
+    resident wave) and its ticket, one pair per device.  The ticket
+    starts at zero and every launch leaves it at zero; calls on one
+    device share the pair, so they must be ordered on one stream, as the
+    port's calls are."""
     if dev not in _SCRATCH:
         _SCRATCH[dev] = (
-            torch.empty(lib.cutsize_partials(2 ** 31 - 1),
+            torch.empty(lib.cutsize_partials(CONN_WAVE_BLOCKS),
                         dtype=torch.float32, device=dev),
             torch.zeros(1, dtype=torch.int32, device=dev))
     return _SCRATCH[dev]
@@ -115,7 +118,8 @@ def cutsize(pins: torch.Tensor, part: torch.Tensor,
     err = lib.cutsize_launch(
         pins.data_ptr(), m, s, part.data_ptr(), n, k,
         edge_weights.data_ptr(), partials.data_ptr(), ticket.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), conn_grid(m, s),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "cutsize_launch", lib)
     cutsize.launches += 1
     return out

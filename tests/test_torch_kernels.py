@@ -5,7 +5,8 @@ On the CPU the port's kernel wrappers run their plain PyTorch versions
 reference's Pallas kernels run as the reference's own tests run them
 (``interpret=True``).  The CUDA kernels themselves are held against the
 same plain versions on the card by ``chip_smoke.py`` and by the tests
-marked ``cuda`` here, which skip without a card.
+marked ``cuda`` in ``test_torch_card.py``, which imports no JAX so that
+it runs on the card's machine.
 
 Tolerances: the gain assemblies (population and one-member) are
 compared bit for bit on integer-valued tables (every f32 sum is exact in
@@ -36,8 +37,8 @@ from repro.kernels import ops as jops
 from repro.kernels.connectivity import connectivity_pallas, cutsize_pallas
 from repro.kernels.embedding_bag import embedding_bag_pallas
 from repro.kernels.rating import rating_scatter_pallas
-from repro_torch.kernels import (build, connectivity, embedding_bag, gain,
-                                 ops, rating, ref)
+from repro_torch.kernels import (connectivity, embedding_bag, gain, ops,
+                                 rating, ref)
 
 # (alpha, N, D, M, k): N off the 256-row block, degree-0 rows, k around
 # the warp width, and the ``table`` widths of the main path (ibm01's
@@ -248,10 +249,13 @@ def _pins_part(m, s, n, k, seed):
     return rng, pins, part
 
 
-# the reference's sweeps (tests/test_kernels.py), plus an odd edge count
+# the reference's sweeps (tests/test_kernels.py), an odd edge count, and
+# the odd row widths S = 1, 5 and 12 that the card kernels' one-id path
+# serves (pads anywhere in a row, since the ids are drawn from [-1, N))
 @pytest.mark.parametrize("m,s,n,k", [
     (512, 8, 300, 2), (512, 16, 1000, 8), (1024, 32, 4096, 32),
-    (512, 128, 512, 17), (130, 8, 300, 5)])
+    (512, 128, 512, 17), (130, 8, 300, 5), (300, 1, 200, 3),
+    (257, 5, 300, 7), (130, 12, 400, 32)])
 def test_connectivity_ref_matches_jax(m, s, n, k):
     _, pins, part = _pins_part(m, s, n, k, seed=m + s + k)
     jargs = (jnp.asarray(pins), jnp.asarray(part), k)
@@ -266,7 +270,8 @@ def test_connectivity_ref_matches_jax(m, s, n, k):
 
 @pytest.mark.parametrize("m,s,n,k,block_m", [
     (512, 8, 256, 4, 512), (2048, 16, 2048, 16, 512), (512, 8, 256, 4, 256),
-    (130, 8, 300, 5, 512)])
+    (130, 8, 300, 5, 512), (300, 1, 200, 3, 256), (257, 5, 300, 7, 512),
+    (130, 12, 400, 32, 512)])
 def test_cutsize_ref_matches_jax(m, s, n, k, block_m):
     rng, pins, part = _pins_part(m, s, n, k, seed=m * k)
     w = rng.random(m).astype(np.float32)
@@ -403,53 +408,6 @@ def test_gain_ops_use_kernel_flag():
         assert_bit_equal(g, x)
 
 
-@pytest.fixture
-def card():
-    """The CUDA device, or a skip that says what is missing."""
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the kernels run on the card only")
-    try:
-        build.nvcc()
-    except RuntimeError as err:
-        pytest.skip(str(err))
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,s,n,k", [(130, 8, 300, 5), (50_000, 64, 51_000,
-                                                        32)])
-def test_connectivity_kernels_on_card(card, m, s, n, k):
-    rng, pins, part = _pins_part(m, s, n, k, seed=m)
-    pins_t, part_t = (torch.from_numpy(x).to(card) for x in (pins, part))
-    assert_bit_equal(connectivity.connectivity(pins_t, part_t, k),
-                     ref.connectivity_ref(pins_t, part_t, k))
-    iw = torch.from_numpy(rng.integers(0, 9, m).astype(np.float32)).to(card)
-    assert torch.equal(connectivity.cutsize(pins_t, part_t, iw, k),
-                       ref.cutsize_ref(pins_t, part_t, iw, k))
-    w = torch.from_numpy(rng.random(m).astype(np.float32)).to(card)
-    got = connectivity.cutsize(pins_t, part_t, w, k)
-    assert torch.equal(got, connectivity.cutsize(pins_t, part_t, w, k))
-    assert float(got) == pytest.approx(
-        float(ref.cutsize_ref(pins_t, part_t, w, k)), rel=1e-5)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,combiner", [("float32", "sum"),
-                                            ("float32", "mean"),
-                                            ("bfloat16", "sum")])
-def test_embedding_bag_kernel_on_card(card, dtype, combiner):
-    rng = np.random.default_rng(3)
-    table = torch.from_numpy(rng.normal(size=(1000, 128)).astype(
-        np.float32)).to(card, getattr(torch, dtype))
-    idx = torch.from_numpy(rng.integers(-1, 1000, (333, 26)).astype(
-        np.int32)).to(card)
-    tol = 1e-5 if dtype == "float32" else 2e-2
-    torch.testing.assert_close(
-        embedding_bag.embedding_bag(table, idx, combiner).float(),
-        ref.embedding_bag_ref(table, idx, combiner).float(),
-        rtol=tol, atol=tol)
-
-
 # --------------------------------------------------------------------------
 # operand checks of the wrappers and the sorted pin edges of the
 # fixed-order sums (host side, no card)
@@ -506,102 +464,3 @@ def test_sorted_pin_edges_match_numpy():
         (3, hga.m_pad)).astype(np.float32))
     assert_bit_equal(rows[:, metrics.sorted_pin_edges(hga)],
                      rows[:, hga.pin_edge.long()][:, order])
-
-
-# --------------------------------------------------------------------------
-# the redesigned kernels on the card (#2-#6): skip without one
-# --------------------------------------------------------------------------
-def _rating_card_case(label):
-    """(segs, vals, S, exact) of the rating kernels' odd shapes: every
-    segment of length 1, a run longer than a tile (integer values, so
-    any order is exact), every id dropped, C = 1 and off the warp width,
-    and the FM step's 119 rows."""
-    rng = np.random.default_rng(len(label))
-
-    def real(alpha, c):
-        return (rng.random((alpha, c)) + 0.1).astype(np.float32)
-
-    if label == "length 1":
-        return np.arange(3001, dtype=np.int32), real(3, 3001), 3001, False
-    if label == "long run":
-        segs = np.concatenate([np.sort(rng.integers(0, 40, 900)),
-                               np.full(40_000, 40),
-                               np.sort(rng.integers(41, 90, 1001))])
-        return (segs.astype(np.int32),
-                rng.integers(0, 4, (2, segs.size)).astype(np.float32), 90,
-                True)
-    if label == "ids below 0":
-        return np.full(777, -1, np.int32), real(2, 777), 500, False
-    if label == "ids >= S":
-        return np.full(777, 900, np.int32), real(2, 777), 500, False
-    if label == "C = 1":
-        return np.full(1, 3, np.int32), real(3, 1), 10, False
-    if label == "C = 1001":
-        segs = np.sort(rng.integers(-5, 950, 1001)).astype(np.int32)
-        return segs, real(4, 1001), 900, False
-    segs = np.sort(rng.integers(0, 1024, 4097)).astype(np.int32)
-    return segs, real(119, 4097), 1024, False
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("label", ["length 1", "long run", "ids below 0",
-                                   "ids >= S", "C = 1", "C = 1001",
-                                   "alpha 119"])
-def test_rating_kernels_on_card(card, label):
-    """#4 and #3 at odd shapes: rtol 1e-6 of the plain version (equal on
-    integers), batch rows bit-equal to the scalar entry, reruns
-    bit-equal."""
-    segs, vals, s, exact = _rating_card_case(label)
-    segs_t, vals_t = torch.from_numpy(segs).to(card), \
-        torch.from_numpy(vals).to(card)
-    got = rating.rating_segment_sum_batch(vals_t, segs_t, s)
-    assert torch.equal(got, rating.rating_segment_sum_batch(vals_t, segs_t,
-                                                            s))
-    assert torch.equal(got, torch.stack([
-        rating.rating_segment_sum(row, segs_t, s) for row in vals_t]))
-    want = ref.rating_segment_sum_batch_ref(vals_t, segs_t, s)
-    if exact:
-        assert torch.equal(got, want)
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,trailing", [
-    ((3, 1001, 8, 700, 1), False), ((2, 999, 24, 513, 3), False),
-    ((1, 777, 1, 300, 8), False), ((2, 601, 1, 400, 16), True),
-    ((3, 1003, 16, 900, 16), True), ((2, 517, 24, 700, 31), False),
-    ((3, 1000, 8, 700, 32), True), ((1, 300, 24, 513, 1024), False)])
-def test_gain_table_kernel_on_card(card, shape, trailing):
-    """#1 and #5 (entry ``table``): equal to the plain versions and to a
-    rerun at k from 1 to 32 (and 1024, which ``REPRO_GAIN_PATH=table``
-    may send there), D = 1, 8 and 24, N off every group and block size,
-    trailing pads as the layout builder leaves them, pads mid-row and
-    degree-0 rows."""
-    inc, bi, wi = (torch.from_numpy(a).to(card) for a in _gain_inputs(
-        *shape, seed=sum(shape), trailing=trailing))
-    got = gain.gain_gather_batch(inc, bi, wi)
-    assert torch.equal(got, ref.gain_gather_batch_ref(inc, bi, wi))
-    assert torch.equal(got, gain.gain_gather_batch(inc, bi, wi))
-    # the last member's tables, off the 16-byte alignment when M*k is odd
-    one = gain.gain_gather(inc, bi[-1].contiguous(), wi[-1].contiguous())
-    assert torch.equal(one, ref.gain_gather_ref(inc, bi[-1], wi[-1]))
-    assert torch.equal(one, gain.gain_gather(inc, bi[-1].contiguous(),
-                                             wi[-1].contiguous()))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,trailing", [
-    ((3, 500, 1, 300, 64), False), ((3, 777, 16, 1500, 64), True),
-    ((3, 300, 8, 200, 33), False), ((2, 600, 16, 900, 100), False),
-    ((1, 300, 24, 513, 1024), False)])
-def test_gain_stream_kernel_on_card(card, shape, trailing):
-    """#2 and #6 (entry ``stream``): equal to the plain versions and to a
-    rerun, with D = 1, trailing pads as the layout builder leaves them,
-    pads mid-row, degree-0 rows and k from 33 to 1024."""
-    inc, bi, wi = (torch.from_numpy(a).to(card) for a in _gain_inputs(
-        *shape, seed=sum(shape), trailing=trailing))
-    got = gain.gain_stream_batch(inc, bi, wi)
-    assert torch.equal(got, ref.gain_stream_batch_ref(inc, bi, wi))
-    assert torch.equal(got, gain.gain_stream_batch(inc, bi, wi))
-    one = gain.gain_stream(inc, bi[-1].contiguous(), wi[-1].contiguous())
-    assert torch.equal(one, ref.gain_stream_ref(inc, bi[-1], wi[-1]))
