@@ -48,7 +48,16 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    defaults): the static schedule's wall W, a ``sched="bandit"`` run with
    ``time_budget_s=W``, and the replay of its trace after a JSON
    round-trip, which must give the live partition, cut and arm sequence
-   bit for bit.
+   bit for bit;
+11. the instance axis (``impart_partition_instances``, DESIGN.md §12):
+   the reference service benchmark's mixed request stream (its first
+   ``INSTANCE_REQUESTS`` requests of ``request_stream(tag="bench")``,
+   alpha 4, lp_iters 8, the reference defaults otherwise) and three ISPD98-sized requests
+   (ibm01/02/03_like at k 16/12/32, memetic operators off), grouped by
+   shape bucket on ``grid=(1024, 4096, 16384, 65536)``, every request
+   bit-equal to its solo ``impart_partition``; one ``refine_grouped``
+   call alone, which must launch the ``table`` gain kernel; and the
+   grouped bandit's traces replayed grouped and solo, bit for bit.
 
 The kernel phase also holds the connectivity and cut kernels (#7/#8, at
 the reference's sweeps and at ``CUT_ODD``'s odd shapes) and the
@@ -64,7 +73,7 @@ its cut once more on the card through ``ops.connectivity`` and
 the ops route), which must agree with the host.
 
 ``--phases`` takes a comma list of
-``kernels,cardtests,parity,off,memetic,cli,ops,sched`` (default: all;
+``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances`` (default: all;
 empty for none) for runs that debug one phase; the kernels line is only printed
 when every phase ran.  ``--repair-cost=DIR`` then times the static
 memetic run of the ``sched`` phase with its mutation seconds on the
@@ -74,7 +83,10 @@ order DIR, this, this, DIR; ``--kernel-compare=DIR`` times the kernels
 redesigned since such a tree (``kernel_times``: #1 to #8 at the kernel
 phase's shapes, #4 also at the FM step's shape, #7 and #8 warm and cold,
 all in a CUDA graph) on DIR and on this one, in the same order; it may
-be given more than once.  With ``--profile`` the script
+be given more than once.  ``--solo-compare=DIR`` runs the ``off`` and
+``cli`` phases of the script of the tree at ``DIR`` and of this one, in
+child processes, in the same order, and prints their walls.  With
+``--profile`` the script
 then splits each memetic-off run into its phases (coarsening, initial
 partition, LP, FM; host clock around synchronized work) and traces the
 ibm08 run with ``torch.profiler`` to report the device's busy share and
@@ -124,7 +136,7 @@ KERNEL_META = {
                       "src/repro/kernels/embedding_bag.py:66"),
 }
 PHASES = ("kernels", "cardtests", "parity", "off", "memetic", "cli", "ops",
-          "sched")
+          "sched", "instances")
 
 # the largest level FM refines (``refine.refine_population``'s default)
 FM_NODE_LIMIT = 4096
@@ -1432,6 +1444,311 @@ def run_sched_path(design: str, k: int, must_launch, cohort_launch=(),
     return total
 
 
+# the instance phase: the reference service benchmark's request stream
+# (``BENCH_service.json``: 12 requests, alpha 4, lp_iters 8), cut to its
+# first 6 to keep the script inside its time limit (the 12 took 770 s
+# grouped and solo on the H100, almost all of it in each request's own
+# recombinations and mutations), and the serving buckets of its grid
+INSTANCE_REQUESTS = 6
+INSTANCE_GRID = (1024, 4096, 16384, 65536)
+INSTANCE_ISPD = (("ibm01_like", 16), ("ibm02_like", 12), ("ibm03_like", 32))
+# child processes that run the stream's solo comparisons beside the
+# grouped run they are compared with
+INSTANCE_CHILDREN = 3
+
+
+class _GroupLog:
+    """Wrap ``instances.refine_grouped`` as the ladder drivers of
+    ``core.impart`` call it (not the V-cycles), so that each call (one
+    lockstep step, or one bandit arm's group) records its requests, the
+    stacks ``dispatch_groups`` makes of them, and the gain path of each
+    stack's union; ``restore`` undoes it."""
+
+    def __init__(self, grid):
+        import types
+        from repro_torch.core import impart, instances
+        from repro_torch.kernels import ops
+        self.module, self.steps = impart, []
+        self.fn = instances.refine_grouped
+
+        def wrapped(entries, *a, **kw):
+            stacks = []
+            for idx in instances.dispatch_groups(entries, grid):
+                inc = [entries[i][0].incident for i in idx]
+                k_pad = max(instances.k_bucket(entries[i][2]) for i in idx)
+                layout = None if any(x is None for x in inc) else inc[0]
+                stacks.append((len(idx), ops.gain_path(0, k_pad, layout)))
+            self.steps.append((len(entries), stacks))
+            return self.fn(entries, *a, **kw)
+        impart.instances_mod = types.SimpleNamespace(refine_grouped=wrapped)
+
+    def restore(self) -> None:
+        from repro_torch.core import instances
+        self.module.instances_mod = instances
+
+    def summary(self) -> str:
+        return "; ".join(
+            f"step {t}: {n} requests in {len(st)} stacks "
+            + "+".join(f"{c}({p})" for c, p in st)
+            for t, (n, st) in enumerate(self.steps))
+
+
+_SOLO_CHILD = """
+import json, sys, time
+import torch
+from repro_torch.core.impart import ImpartConfig, impart_partition
+from repro_torch.core.scheduler import SchedulerTrace
+from repro_torch.data.hypergraphs import request_stream
+spec = json.load(open(sys.argv[1]))
+reqs = request_stream(spec["count"], tag="bench", scale=1.0)
+out = []
+for job in spec["jobs"]:
+    cfg = dict(job["cfg"])
+    if cfg.get("sched_replay") is not None:
+        cfg["sched_replay"] = SchedulerTrace.from_json(cfg["sched_replay"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = impart_partition(reqs[job["index"]]["hg"], ImpartConfig(**cfg),
+                           device="cuda")
+    torch.cuda.synchronize()
+    out.append(dict(index=job["index"], wall=time.perf_counter() - t0,
+                    part=res.part.tolist(), cut=res.cut,
+                    population_cuts=res.population_cuts,
+                    arms=(None if res.sched_trace is None
+                          else res.sched_trace.arm_sequence())))
+json.dump(out, open(sys.argv[2], "w"))
+"""
+
+
+class _SoloChildren:
+    """Solo ``impart_partition`` runs of stream requests on the card, in
+    ``procs`` child processes started at once (request j in child
+    j % procs), so they run beside the grouped run they are compared
+    with.  ``jobs`` holds ``(request index, ImpartConfig keywords)``;
+    ``results`` waits and returns ``{index: result dict}``; ``stop``
+    ends any child still running and removes the children's files."""
+
+    def __init__(self, jobs, procs: int, label: str):
+        import tempfile
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        self.dir = tempfile.mkdtemp(prefix="solo-", dir=os.path.join(
+            ROOT, "build"))
+        self.label, self.procs = label, []
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        for c in range(min(procs, len(jobs))):
+            spec = os.path.join(self.dir, f"{c}.json")
+            with open(spec, "w") as f:
+                json.dump(dict(count=INSTANCE_REQUESTS, jobs=[
+                    dict(index=i, cfg=cfg) for i, cfg in jobs[c::procs]]), f)
+            out = os.path.join(self.dir, f"{c}.out.json")
+            log = open(os.path.join(self.dir, f"{c}.log"), "w")
+            self.procs.append((subprocess.Popen(
+                [sys.executable, "-c", _SOLO_CHILD, spec, out], cwd=ROOT,
+                env=env, stdout=log, stderr=subprocess.STDOUT), out, log))
+
+    def results(self, timeout: float = 900.0) -> dict:
+        got = {}
+        for proc, out, log in self.procs:
+            rc = proc.wait(timeout=timeout)
+            log.close()
+            if rc != 0:
+                with open(log.name) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"{self.label}: a solo child exited "
+                                     f"{rc}: {tail}")
+            with open(out) as f:
+                got.update({r["index"]: r for r in json.load(f)})
+        return got
+
+    def stop(self) -> None:
+        import shutil
+        for proc, _, log in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def run_instances_path(must_launch):
+    """Phase ``instances``: the instance axis on the card (DESIGN.md §12).
+
+    (a) the reference service benchmark's mixed request stream through
+    ``impart_partition_instances`` (static schedule, the reference
+    defaults with alpha 4 and lp_iters 8), every request bit-equal to its
+    solo ``impart_partition`` and checked on the host and on the card;
+    the solo runs go in ``INSTANCE_CHILDREN`` child processes on the
+    card beside the grouped run, so their walls are not walls alone;
+    (b) three ISPD98-sized requests at full published size, memetic
+    operators off, the same bar, the grouped wall printed beside the
+    solo walls (all in this process, one after another); (c) one
+    ``refine_grouped`` call on the first levels with n <= 4,096 of the
+    three requests' hierarchies, which must launch the ``table`` gain
+    kernel and equal each entry's solo ``refine_population``; (d) the
+    grouped bandit live on the first 4 requests of (a), each request's
+    trace replayed through the grouped driver and solo (in child
+    processes beside the grouped replay), both bit-equal to the live
+    run.  Returns the launches of (a), (b) and (d) and of their cut
+    checks."""
+    import numpy as np
+    import torch
+    from repro_torch.core import instances, refine
+    from repro_torch.core.dcoarsen import build_hierarchy
+    from repro_torch.core.impart import (ImpartConfig, impart_partition,
+                                         impart_partition_instances)
+    from repro_torch.core.scheduler import SchedulerTrace
+    from repro_torch.data.hypergraphs import ispd_like, request_stream
+    from repro_torch.kernels import ops
+    total, path_total = {}, {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, ops.launch_counts()
+
+    def grouped(label, hgs, cfgs):
+        log = _GroupLog(INSTANCE_GRID)
+        try:
+            res, wall, counts = timed(lambda: impart_partition_instances(
+                hgs, cfgs, grid=list(INSTANCE_GRID), device="cuda"))
+        finally:
+            log.restore()
+        _add_counts(total, counts)
+        _add_counts(path_total, counts)
+        print(f"[instances] {label} grouped: wall_s {wall!r}, "
+              f"{len(log.steps)} lockstep steps, launches {counts}")
+        print(f"[instances] {label} stacks per step: {log.summary()}")
+        return res, wall
+
+    def check_request(label, i, hg, cfg, res, solo, w):
+        cut, balanced, bw_max, cap = host_cut_and_balance(
+            hg, res.part, cfg.k, cfg.eps)
+        _add_counts(total, card_cut_check(hg, res.part, cfg.k, cut,
+                                          f"{label} request {i}"))
+        same = (np.array_equal(res.part, np.asarray(solo["part"]))
+                and res.cut == solo["cut"]
+                and res.population_cuts == solo["population_cuts"])
+        print(f"[instances] {label} request {i} n={hg.n} m={hg.m} "
+              f"k={cfg.k} eps={cfg.eps}: levels {res.levels} cut "
+              f"{res.cut!r} host cut {cut!r} max block weight {bw_max!r} "
+              f"cap {cap!r}; solo wall_s {w!r} cut {solo['cut']!r}; "
+              f"grouped == solo (part, cut, population cuts): {same}")
+        if not same or cut != res.cut or not balanced:
+            raise AssertionError(f"{label} request {i}: grouped {res.cut} "
+                                 f"vs solo {solo['cut']}, host {cut}, "
+                                 f"balanced={balanced}")
+
+    # (a) the mixed request stream, its solo runs in child processes
+    reqs = request_stream(INSTANCE_REQUESTS, tag="bench", scale=1.0)
+    hgs = [r["hg"] for r in reqs]
+    kws = [dict(k=r["k"], eps=r["eps"], alpha=4, lp_iters=8, sched="static")
+           for r in reqs]
+    children = _SoloChildren(list(enumerate(kws)), INSTANCE_CHILDREN,
+                             "stream")
+    try:
+        res_a, wall_a = grouped("stream", hgs,
+                                [ImpartConfig(**kw) for kw in kws])
+        solos = children.results()
+    finally:
+        children.stop()
+    for i, (hg, kw, res) in enumerate(zip(hgs, kws, res_a)):
+        check_request("stream", i, hg, ImpartConfig(**kw), res, solos[i],
+                      solos[i]["wall"])
+    print(f"[instances] stream walls: grouped {wall_a!r} s; solo runs in "
+          f"{INSTANCE_CHILDREN} child processes beside it, sum "
+          f"{sum(s['wall'] for s in solos.values())!r} s (not walls alone)")
+
+    # (b) ISPD98-sized requests, memetic operators off, solo runs after
+    ispd = [ispd_like(name, 1.0) for name, _ in INSTANCE_ISPD]
+    ispd_cfgs = [ImpartConfig(k=k, eps=0.03, alpha=7, sched="static",
+                              recombination_enabled=False,
+                              mutation_enabled=False)
+                 for _, k in INSTANCE_ISPD]
+    res_b, wall_b = grouped("ispd", ispd, ispd_cfgs)
+    walls = []
+    for i, (hg, cfg, res) in enumerate(zip(ispd, ispd_cfgs, res_b)):
+        solo, w, _ = timed(lambda: impart_partition(hg, cfg, device="cuda"))
+        walls.append(w)
+        check_request("ispd", i, hg, cfg, res, dict(
+            part=solo.part, cut=solo.cut,
+            population_cuts=solo.population_cuts), w)
+    print(f"[instances] ispd walls: grouped {wall_b!r} s, solo sum "
+          f"{sum(walls)!r} s (single runs, no claim)")
+
+    # (c) one grouped refinement on its own
+    entries, solos_c = [], []
+    for (name, k), hg in zip(INSTANCE_ISPD, ispd):
+        hier = build_hierarchy(hg, k, seed=0, device="cuda")
+        li = min(i for i in range(hier.num_levels)
+                 if hier.level_n(i) <= FM_NODE_LIMIT)
+        hga = hier.level_arrays(li)
+        rng = np.random.default_rng(li)
+        vw = hga.vertex_weights[: hga.n].cpu().numpy()
+        parts = refine.pad_parts(np.stack([refine.rebalance(
+            vw, rng.integers(0, k, hga.n).astype(np.int32), k, 0.03)
+            for _ in range(7)]), hga.n_pad, "cuda")
+        entries.append((hga, parts, k, 0.03))
+        solos_c.append(refine.refine_population(hga, parts.clone(), k, 0.03,
+                                                device="cuda"))
+        print(f"[instances] refine_grouped input {name} k={k}: level {li} "
+              f"n={hga.n} n_pad={hga.n_pad} layout "
+              f"{None if hga.incident is None else tuple(hga.incident.shape)}")
+    outs, wall, counts = timed(lambda: instances.refine_grouped(
+        entries, grid=INSTANCE_GRID, device="cuda"))
+    stacks = [[entries[i][2] for i in idx]
+              for idx in instances.dispatch_groups(entries, INSTANCE_GRID)]
+    same = all(torch.equal(gp, sp) and np.array_equal(gc, sc)
+               for (gp, gc), (sp, sc) in zip(outs, solos_c))
+    print(f"[instances] refine_grouped alone: stacks by k {stacks}, wall_s "
+          f"{wall!r}, launches {counts}; == solo refine_population: {same}")
+    if not same or not counts["gain_table"]:
+        raise AssertionError("refine_grouped alone: differs from solo or "
+                             "launched no gain_table")
+
+    # (d) the grouped bandit, replayed grouped and solo (children)
+    bandit = [dict(kw, sched="bandit") for kw in kws[:4]]
+    live, wall, counts = timed(lambda: impart_partition_instances(
+        hgs[:4], [ImpartConfig(**kw) for kw in bandit],
+        grid=list(INSTANCE_GRID), device="cuda"))
+    _add_counts(total, counts)
+    _add_counts(path_total, counts)
+    traces = [json.loads(json.dumps(r.sched_trace.to_json())) for r in live]
+    replay_kws = [dict(kw, sched_replay=tr) for kw, tr in zip(bandit, traces)]
+    children = _SoloChildren(list(enumerate(replay_kws)), 2, "bandit")
+    try:
+        again, wall_r, _ = timed(lambda: impart_partition_instances(
+            hgs[:4], [ImpartConfig(**dict(
+                kw, sched_replay=SchedulerTrace.from_json(tr)))
+                for kw, tr in zip(bandit, traces)],
+            grid=list(INSTANCE_GRID), device="cuda"))
+        solos = children.results()
+    finally:
+        children.stop()
+    for i, (res, rep) in enumerate(zip(live, again)):
+        arms, solo = res.sched_trace.arm_sequence(), solos[i]
+        ok = (np.array_equal(rep.part, res.part) and rep.cut == res.cut
+              and rep.sched_trace.arm_sequence() == arms
+              and np.array_equal(np.asarray(solo["part"]), res.part)
+              and solo["cut"] == res.cut and solo["arms"] == arms)
+        print(f"[instances] bandit request {i}: live cut {res.cut!r}, "
+              f"{len(arms)} decisions; grouped replay cut {rep.cut!r}, solo "
+              f"replay cut {solo['cut']!r}; replays == live: {ok}")
+        if not ok:
+            raise AssertionError(f"bandit request {i}: a replay differs "
+                                 "from the live grouped run")
+    print(f"[instances] bandit walls: live grouped {wall!r} s, grouped "
+          f"replay {wall_r!r} s (beside the solo replays); launches of the "
+          f"live run {counts}")
+    missing = [n for n in must_launch if path_total.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"instances path: kernels never launched: "
+                             f"{missing}")
+    return total
+
+
 _COST_CHILD = """
 import json, sys, time
 import torch
@@ -1488,6 +1805,27 @@ def run_repair_cost(parent_src: str) -> None:
                 if ln.startswith("[cost] ")][-1]
         print(f"[cost] ibm01_like k=16 static memetic, {label} ({src}): "
               f"{line[7:]}")
+
+
+def run_solo_compare(parent_root: str) -> None:
+    """The one-request paths with the memetic operators off and the CLI
+    (phases ``off`` and ``cli``) on the tree at ``parent_root`` and on
+    this one, each through its own ``chip_smoke.py`` in a child process,
+    in the order parent, this, this, parent: their walls beside a tree
+    before a change to the refinement or the drivers."""
+    for label, root in (("parent", parent_root), ("this", ROOT),
+                        ("this", ROOT), ("parent", parent_root)):
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "chip_smoke.py"),
+             "--phases=off,cli"], capture_output=True, text=True, cwd=root,
+            timeout=900)
+        if proc.returncode != 3:
+            raise AssertionError(f"solo-compare run on {root} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        for line in proc.stdout.splitlines():
+            if (line.startswith("[main]") and "wall_s" in line) or (
+                    line.startswith("[cli]") and "child wall_s" in line):
+                print(f"[solo-compare] {label}: {line[:240]}")
 
 
 _LEVEL_FIELDS = ("pin_vertex", "pin_edge", "vertex_weights", "edge_weights",
@@ -1833,6 +2171,8 @@ def main() -> int:
         add(run_sched_path("ibm01_like", 16, ("gain_table",
                                               "rating_segment_sum"),
                            ("rating_segment_sum_batch",)))
+    if "instances" in phases:
+        add(run_instances_path(("gain_table", "rating_segment_sum")))
     if "--profile" in sys.argv[1:]:
         for design, k in (("ibm08_like", 64), ("ibm01_like", 16)):
             profile_main_path(design, k)
@@ -1842,6 +2182,8 @@ def main() -> int:
             run_repair_cost(os.path.abspath(arg.split("=", 1)[1]))
         if arg.startswith("--kernel-compare="):
             run_kernel_compare(os.path.abspath(arg.split("=", 1)[1]))
+        if arg.startswith("--solo-compare="):
+            run_solo_compare(os.path.abspath(arg.split("=", 1)[1]))
     if set(phases) != set(PHASES):
         print(f"[smoke] ran phases {list(phases)} only: no result line")
         return 3

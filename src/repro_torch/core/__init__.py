@@ -10,15 +10,18 @@ from .coarsen import coarsen, recombination_thresholds, Hierarchy, Level
 from .dcoarsen import (build_hierarchy, device_coarsen, coarsen_path,
                        population_coarsen, PopulationHierarchy)
 from .initial_partition import initial_partition, initial_partition_population
-from .impart import impart_partition, ImpartConfig, ImpartResult
+from .impart import (impart_partition, impart_partition_instances,
+                     ImpartConfig, ImpartResult)
+from .instances import (InstanceBatch, bucket_n_pad, group_key, k_bucket,
+                        refine_grouped, stack_instances, stack_parts)
 from .baselines import (multilevel_partition, multilevel_best_of,
                         external_memetic, MultilevelResult)
 from .recombine import ring_recombination, overlay_clustering
 from .mutate import mutate_population, mutate_path, similarity_sets
 from .scheduler import (OperatorScheduler, SchedulerDecision,
                         SchedulerTrace, sched_path, resolve_sched)
-from .vcycle import vcycle_population
-from . import metrics, refine, ilp
+from .vcycle import vcycle_instances, vcycle_population
+from . import instances, metrics, refine, ilp
 
 __all__ = [
     "Hypergraph", "HypergraphArrays", "HierarchyArrays", "contract",
@@ -27,12 +30,14 @@ __all__ = [
     "build_hierarchy", "device_coarsen", "coarsen_path",
     "population_coarsen", "PopulationHierarchy",
     "initial_partition", "initial_partition_population",
-    "impart_partition", "ImpartConfig", "ImpartResult",
+    "impart_partition", "impart_partition_instances", "ImpartConfig",
+    "ImpartResult", "InstanceBatch", "bucket_n_pad", "group_key", "k_bucket",
+    "refine_grouped", "stack_instances", "stack_parts",
     "multilevel_partition", "multilevel_best_of", "external_memetic",
     "MultilevelResult",
     "ring_recombination", "overlay_clustering",
     "mutate_population", "mutate_path", "similarity_sets",
     "OperatorScheduler", "SchedulerDecision", "SchedulerTrace",
-    "sched_path", "resolve_sched", "vcycle_population",
-    "metrics", "refine", "ilp",
+    "sched_path", "resolve_sched", "vcycle_instances", "vcycle_population",
+    "instances", "metrics", "refine", "ilp",
 ]

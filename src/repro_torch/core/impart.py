@@ -11,9 +11,15 @@ level on the host once (``level_host``) for their overlay work.
 ``sched="bandit"`` (or ``REPRO_SCHED=bandit``) replaces the fixed
 schedule by the operator scheduler (``core.scheduler``, DESIGN.md §16):
 the same dispatches, chosen per (level, phase) by a contextual bandit,
-and replayable from the logged trace.  The multi-device paths keep
-their config fields and raise ``NotImplementedError`` naming the slice
-that brings them.
+and replayable from the logged trace.
+
+One driver runs both: ``impart_partition_instances`` (DESIGN.md §12)
+takes a batch of independent requests and groups their refinement
+through ``instances.refine_grouped``; ``impart_partition`` is its batch
+of one, whose one-entry stacks go straight to
+``refine.refine_population``.  The multi-device paths keep their config
+fields and raise ``NotImplementedError`` naming the slice that brings
+them.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from .hypergraph import Hypergraph
 from .coarsen import recombination_thresholds
 from .dcoarsen import build_hierarchy
 from .initial_partition import initial_partition_population
+from . import instances as instances_mod
 from . import refine as refine_mod
 from .mutate import MUTATE_PATHS, mutate_population
 from .recombine import ring_recombination
@@ -127,90 +134,10 @@ def impart_partition(hg: Hypergraph, cfg: ImpartConfig,
                      device: str | torch.device = "cuda") -> ImpartResult:
     """Partition ``hg`` into ``cfg.k`` blocks on ``device``, with the
     static schedule or, when ``resolve_sched(cfg.sched)`` says so, the
-    bandit's."""
-    _check_slice(cfg)
-    from repro_torch.kernels import ops
-    dev = resolve_device(device)
-    if resolve_sched(cfg.sched) == "bandit":
-        return _impart_partition_bandit(hg, cfg, dev)
-    t0 = time.perf_counter()
-    k, eps = cfg.k, cfg.eps
-    hier = build_hierarchy(hg, k, seed=cfg.seed,
-                           contraction_limit_factor=cfg.contraction_limit_factor,
-                           device=dev)
-    num_levels = hier.num_levels
-    n_c = hier.level_n(num_levels - 1)
-    thresholds = recombination_thresholds(hg.n, n_c, cfg.beta)
-
-    # alpha diverse initial solutions (distinct seeds), the whole
-    # portfolio x population stack refined in one batch
-    parts, cuts = initial_partition_population(
-        hier.level_host(num_levels - 1), k, eps,
-        seeds=[cfg.seed * 101 + i for i in range(cfg.alpha)],
-        tries_per_strategy=1, hga=hier.level_arrays(num_levels - 1))
-
-    trace: List[tuple] = [(n_c, list(cuts), "init")]
-    gain_paths: List[str] = []
-    next_thr = 0
-    steps_done = 0
-    degraded = False
-
-    for li in range(num_levels - 1, -1, -1):
-        if li < num_levels - 1:
-            parts = hier.project_pop(parts, li + 1)
-        n_li = hier.level_n(li)
-        hga = hier.level_arrays(li)
-        gain_paths.append(ops.gain_path(hga.m_pad, k, hga.incident))
-        parts, cuts = refine_mod.refine_population(
-            hga, parts, k, eps, fm_node_limit=cfg.fm_node_limit,
-            max_iters=cfg.lp_iters, device=hga.device)
-        trace.append((n_li, list(cuts), "refine"))
-
-        # the geometric-threshold recombination rounds (host overlay
-        # work on the level, materialised once through level_host)
-        while (next_thr < cfg.beta and n_li >= thresholds[next_thr] - 1e-9
-               and cfg.recombination_enabled):
-            lv_host = hier.level_host(li)
-            parts, cuts = ring_recombination(
-                lv_host, torch.as_tensor(parts).cpu().numpy()[:, : n_li],
-                cuts, k, eps, seed=cfg.seed * 31 + next_thr,
-                shard=cfg.pop_shard, model_shard=cfg.model_shard,
-                device=dev)
-            trace.append((n_li, list(cuts), f"recombine@{next_thr}"))
-            if cfg.mutation_enabled:
-                parts, cuts = mutate_population(
-                    lv_host, parts, cuts, k, eps,
-                    threshold=cfg.similarity_threshold,
-                    mu=cfg.mutation_mu, seed=cfg.seed * 17 + next_thr,
-                    path=cfg.mutation_path, shard=cfg.pop_shard,
-                    model_shard=cfg.model_shard, device=dev)
-                trace.append((n_li, list(cuts), f"mutate@{next_thr}"))
-            next_thr += 1
-        steps_done += 1
-        if (exhausted(t0, cfg.time_budget_s)
-                or (li > 0 and level_exhausted(steps_done,
-                                               cfg.level_budget))):
-            parts, cuts = _fast_forward(hier, parts, li, cfg)
-            trace.append((hg.n, list(cuts), "budget-exhausted"))
-            degraded = True
-            break
-
-    parts = torch.as_tensor(parts).cpu().numpy()
-    best = int(np.argmin(cuts))
-    part, cut = parts[best][: hg.n], float(cuts[best])
-    if not degraded:
-        for v in range(cfg.final_vcycles):
-            if exhausted(t0, cfg.time_budget_s):
-                break
-            part, cut = vcycle(hg, part, k, eps, seed=cfg.seed * 997 + v,
-                               shard=cfg.pop_shard,
-                               model_shard=cfg.model_shard, device=dev)
-            trace.append((hg.n, [cut], f"final-vcycle@{v}"))
-    return ImpartResult(
-        part=np.asarray(part, np.int32), cut=float(cut),
-        population_cuts=[float(c) for c in cuts], trace=trace,
-        wall_s=time.perf_counter() - t0, levels=hier.sizes(),
-        degraded=degraded, gain_paths=gain_paths)
+    bandit's: a batch of one request through
+    ``impart_partition_instances``, whose one-entry stacks refine through
+    ``refine.refine_population``."""
+    return impart_partition_instances([hg], [cfg], device=device)[0]
 
 
 def _sched_menu(cfg: ImpartConfig) -> tuple:
@@ -289,15 +216,202 @@ def _fast_forward(hier, parts, li: int, cfg: ImpartConfig):
         shard=cfg.pop_shard, model_shard=cfg.model_shard)
 
 
-def _impart_partition_bandit(hg: Hypergraph, cfg: ImpartConfig,
-                             dev: torch.device) -> ImpartResult:
+def _instances_setup(hgs: List[Hypergraph], cfgs: List[ImpartConfig],
+                     dev: torch.device, bandit: bool) -> List[dict]:
+    """Each request's hierarchy, initial population and thresholds (plus
+    its own scheduler under the bandit)."""
+    st = []
+    for hg, cfg in zip(hgs, cfgs):
+        hier = build_hierarchy(
+            hg, cfg.k, seed=cfg.seed,
+            contraction_limit_factor=cfg.contraction_limit_factor,
+            device=dev)
+        num = hier.num_levels
+        parts, cuts = initial_partition_population(
+            hier.level_host(num - 1), cfg.k, cfg.eps,
+            seeds=[cfg.seed * 101 + i for i in range(cfg.alpha)],
+            tries_per_strategy=1, hga=hier.level_arrays(num - 1))
+        n_c = hier.level_n(num - 1)
+        s = dict(hier=hier, parts=parts, cuts=cuts, next_thr=0,
+                 thresholds=recombination_thresholds(hg.n, n_c, cfg.beta),
+                 trace=[(n_c, list(cuts), "init")], steps=0,
+                 degraded=False, gain_paths=[])
+        if bandit:
+            s["sch"] = OperatorScheduler(seed=cfg.seed,
+                                         policy=cfg.sched_policy,
+                                         replay=cfg.sched_replay)
+        st.append(s)
+    return st
+
+
+def _level_entry(s: dict, li: int, cfg: ImpartConfig) -> tuple:
+    """A request's level ``li`` as a ``refine_grouped`` entry, with the
+    level's gain-assembly path logged in its result."""
+    from repro_torch.kernels import ops
+    hga = s["hier"].level_arrays(li)
+    s["gain_paths"].append(ops.gain_path(hga.m_pad, cfg.k, hga.incident))
+    return (hga, s["parts"], cfg.k, cfg.eps)
+
+
+def _instances_results(hgs, cfgs, st, t0: float, dev: torch.device
+                       ) -> List[ImpartResult]:
+    """Each request's best member through its final V-cycles (the
+    scheduler's replay decides their count)."""
+    results = []
+    for hg, cfg, s in zip(hgs, cfgs, st):
+        sch = s.get("sch")
+        parts = torch.as_tensor(s["parts"]).cpu().numpy()
+        cuts = s["cuts"]
+        best = int(np.argmin(cuts))
+        part, cut = parts[best][: hg.n], float(cuts[best])
+        if not s["degraded"]:
+            replaying = sch is not None and sch.replaying
+            n_want = (sch.replay_final_vcycles() if replaying
+                      else cfg.final_vcycles)
+            n_vc = 0
+            for v in range(n_want):
+                if not replaying and exhausted(t0, cfg.time_budget_s):
+                    break
+                part, cut = vcycle(hg, part, cfg.k, cfg.eps,
+                                   seed=cfg.seed * 997 + v,
+                                   shard=cfg.pop_shard,
+                                   model_shard=cfg.model_shard,
+                                   scheduler=sch, device=dev)
+                s["trace"].append((hg.n, [cut], f"final-vcycle@{v}"))
+                n_vc += 1
+            if sch is not None:
+                sch.trace.final_vcycles = n_vc
+        results.append(ImpartResult(
+            part=np.asarray(part, np.int32), cut=float(cut),
+            population_cuts=[float(c) for c in cuts], trace=s["trace"],
+            wall_s=time.perf_counter() - t0, levels=s["hier"].sizes(),
+            degraded=s["degraded"], gain_paths=s["gain_paths"],
+            sched_trace=None if sch is None else sch.trace))
+    return results
+
+
+def impart_partition_instances(hgs: List[Hypergraph],
+                               cfgs: List[ImpartConfig],
+                               grid: Optional[List[int]] = None,
+                               device: str | torch.device = "cuda"
+                               ) -> List[ImpartResult]:
+    """``impart_partition`` for a batch of independent requests on
+    ``device`` (DESIGN.md §12): every request keeps its own hierarchy,
+    population, recombination thresholds and mutation events (with the
+    seeds of a run alone), but the refinement runs grouped: the requests walk
+    their uncoarsening ladders in lockstep, and at each step the current
+    levels that share a shape bucket refine as one stack through
+    ``instances.refine_grouped``.
+
+    Each request's result is bit-equal to ``impart_partition(hg, cfg)``,
+    its batch of one.  ``alpha``, ``lp_iters`` and ``fm_node_limit`` must agree
+    across configs (they shape the shared dispatch), and the schedule
+    mode too (``_impart_instances_bandit`` runs the bandit's).
+
+    Budgets (DESIGN.md §13): ``level_budget`` counts the request's own
+    level refinements, so a capped request is still bit-equal to its
+    run alone.  ``time_budget_s`` is accepted: a spent budget
+    fast-forwards that request to a degraded result by the same
+    mechanism, but *when* the clock trips depends on the work batched
+    beside it."""
+    if len(hgs) != len(cfgs):
+        raise ValueError("one config per hypergraph required")
+    if len({(c.alpha, c.lp_iters, c.fm_node_limit) for c in cfgs}) > 1:
+        raise ValueError("instance batching requires equal alpha / "
+                         "lp_iters / fm_node_limit across configs")
+    for cfg in cfgs:
+        _check_slice(cfg)
+    dev = resolve_device(device)
+    modes = {resolve_sched(c.sched) for c in cfgs}
+    if "bandit" in modes:
+        if modes != {"bandit"}:
+            raise ValueError("instance batching requires a uniform sched "
+                             "mode across configs (got mixed "
+                             "bandit/static)")
+        return _impart_instances_bandit(hgs, cfgs, grid, dev)
+    t0 = time.perf_counter()
+    st = _instances_setup(hgs, cfgs, dev, bandit=False)
+    fm_limit, lp_iters = cfgs[0].fm_node_limit, cfgs[0].lp_iters
+
+    for t in range(max(s["hier"].num_levels for s in st)):
+        step_idx, entries = [], []
+        for i, s in enumerate(st):
+            hier = s["hier"]
+            if s["degraded"] or t >= hier.num_levels:
+                continue
+            li = hier.num_levels - 1 - t
+            if li < hier.num_levels - 1:
+                s["parts"] = hier.project_pop(s["parts"], li + 1)
+            entries.append(_level_entry(s, li, cfgs[i]))
+            step_idx.append(i)
+        if not entries:
+            break
+        outs = instances_mod.refine_grouped(
+            entries, grid=grid, fm_node_limit=fm_limit, max_iters=lp_iters,
+            shard=cfgs[0].pop_shard, model_shard=cfgs[0].model_shard,
+            device=dev)
+        for (rp, rc), i in zip(outs, step_idx):
+            s, cfg, hier = st[i], cfgs[i], st[i]["hier"]
+            li = hier.num_levels - 1 - t
+            n_li = hier.level_n(li)
+            s["parts"], s["cuts"] = rp, rc
+            s["trace"].append((n_li, list(rc), "refine"))
+            # the memetic events stay per request, with its own seeds
+            while (s["next_thr"] < cfg.beta
+                   and n_li >= s["thresholds"][s["next_thr"]] - 1e-9
+                   and cfg.recombination_enabled):
+                lv_host = hier.level_host(li)
+                s["parts"], s["cuts"] = ring_recombination(
+                    lv_host,
+                    torch.as_tensor(s["parts"]).cpu().numpy()[:, : n_li],
+                    s["cuts"], cfg.k, cfg.eps,
+                    seed=cfg.seed * 31 + s["next_thr"],
+                    shard=cfg.pop_shard, model_shard=cfg.model_shard,
+                    device=dev)
+                s["trace"].append(
+                    (n_li, list(s["cuts"]), f"recombine@{s['next_thr']}"))
+                if cfg.mutation_enabled:
+                    s["parts"], s["cuts"] = mutate_population(
+                        lv_host, s["parts"], s["cuts"], cfg.k, cfg.eps,
+                        threshold=cfg.similarity_threshold,
+                        mu=cfg.mutation_mu,
+                        seed=cfg.seed * 17 + s["next_thr"],
+                        path=cfg.mutation_path, shard=cfg.pop_shard,
+                        model_shard=cfg.model_shard, device=dev)
+                    s["trace"].append(
+                        (n_li, list(s["cuts"]), f"mutate@{s['next_thr']}"))
+                s["next_thr"] += 1
+            s["steps"] += 1
+            if (exhausted(t0, cfg.time_budget_s)
+                    or (li > 0 and level_exhausted(s["steps"],
+                                                   cfg.level_budget))):
+                # the fast-forward: the request leaves the walk and
+                # finishes degraded
+                s["parts"], s["cuts"] = _fast_forward(hier, s["parts"], li,
+                                                      cfg)
+                s["trace"].append(
+                    (hgs[i].n, list(s["cuts"]), "budget-exhausted"))
+                s["degraded"] = True
+    return _instances_results(hgs, cfgs, st, t0, dev)
+
+
+def _impart_instances_bandit(hgs: List[Hypergraph],
+                             cfgs: List[ImpartConfig],
+                             grid: Optional[List[int]],
+                             dev: torch.device) -> List[ImpartResult]:
     """The bandit-scheduled ladder (DESIGN.md §16): the static driver's
-    hierarchy, initial population, budgets and fast-forward, with the
-    dispatch at each (level, phase) slot chosen by the scheduler:
+    hierarchies, initial populations, budgets and fast-forward, with the
+    dispatch at each (level, phase) slot of each request chosen by its
+    own scheduler:
 
     * phase 0 of every level is a mandatory refinement from {lp, lp_fm};
+      a lockstep step's grouped refinement is split by the arm each
+      request chose, the ``lp`` group dispatched with
+      ``fm_node_limit=0`` (``lp_refine_population`` per row), the
+      ``lp_fm`` group with the configured limit;
     * each beta-threshold crossing grants two optional slots from the
-      full menu (the static schedule's recombine + mutate budget);
+      full menu (the static schedule's recombine + mutate budget), run
+      per request;
     * at the finest level, a wall-clock budget keeps granting optional
       slots until it is spent.
 
@@ -306,93 +420,102 @@ def _impart_partition_bandit(hg: Hypergraph, cfg: ImpartConfig,
     that ladder position) and how many final V-cycles ran; the clock is
     never consulted, so the replayed run is bit-identical to the live
     one.
-    """
+
+    The dispatch wall is shared by its group and is every member's
+    reward wall, so a live grouped bandit may pull other arms than the
+    same request alone: a grouped bandit run is reproduced from its
+    per-request traces, not from a live run of one."""
     t0 = time.perf_counter()
-    k, eps = cfg.k, cfg.eps
-    hier = build_hierarchy(hg, k, seed=cfg.seed,
-                           contraction_limit_factor=cfg.contraction_limit_factor,
-                           device=dev)
-    num_levels = hier.num_levels
-    n_c = hier.level_n(num_levels - 1)
-    thresholds = recombination_thresholds(hg.n, n_c, cfg.beta)
-    parts, cuts = initial_partition_population(
-        hier.level_host(num_levels - 1), k, eps,
-        seeds=[cfg.seed * 101 + i for i in range(cfg.alpha)],
-        tries_per_strategy=1, hga=hier.level_arrays(num_levels - 1))
+    st = _instances_setup(hgs, cfgs, dev, bandit=True)
+    fm_limit, lp_iters = cfgs[0].fm_node_limit, cfgs[0].lp_iters
 
-    trace: List[tuple] = [(n_c, list(cuts), "init")]
-    sch = OperatorScheduler(seed=cfg.seed, policy=cfg.sched_policy,
-                            replay=cfg.sched_replay)
-    menu = _sched_menu(cfg)
-    next_thr = 0
-    steps_done = 0
-    degraded = False
-
-    def pull(li, phase, arms):
-        nonlocal parts, cuts
-        arm = sch.choose(li, phase, arms)
-        parts, cuts = _sched_pull(sch, arm, li, phase, hier, parts, cuts,
-                                  cfg, dev)
-        trace.append((hier.level_n(li), list(cuts), f"sched:{arm}@{phase}"))
-
-    for li in range(num_levels - 1, -1, -1):
-        if sch.replaying and not sch.replay_has_level(li):
-            # the live run's budget tripped at this boundary: replay the
-            # same fast-forward
-            parts, cuts = _fast_forward(hier, parts, li + 1, cfg)
-            trace.append((hg.n, list(cuts), "budget-exhausted"))
-            degraded = True
+    for t in range(max(s["hier"].num_levels for s in st)):
+        groups = {"lp": [], "lp_fm": []}
+        for i, s in enumerate(st):
+            hier, cfg, sch = s["hier"], cfgs[i], s["sch"]
+            if s["degraded"] or t >= hier.num_levels:
+                continue
+            li = hier.num_levels - 1 - t
+            if sch.replaying and not sch.replay_has_level(li):
+                # the live run fast-forwarded at this boundary
+                s["parts"], s["cuts"] = _fast_forward(hier, s["parts"],
+                                                      li + 1, cfg)
+                s["trace"].append(
+                    (hgs[i].n, list(s["cuts"]), "budget-exhausted"))
+                s["degraded"] = True
+                continue
+            if li < hier.num_levels - 1:
+                s["parts"] = hier.project_pop(s["parts"], li + 1)
+            s["before"] = float(np.min(np.asarray(s["cuts"])))
+            groups[sch.choose(li, 0, REFINE_ARMS)].append(i)
+        if not groups["lp"] and not groups["lp_fm"]:
             break
-        if li < num_levels - 1:
-            parts = hier.project_pop(parts, li + 1)
-        n_li = hier.level_n(li)
-        pull(li, 0, REFINE_ARMS)    # phase 0: the mandatory refinement
-        phase = 1
-        if sch.replaying:
-            while sch.replay_pending(li, phase):
-                pull(li, phase, menu)
-                phase += 1
-            continue
-        # optional slots: two per beta-threshold crossing...
-        while next_thr < cfg.beta and n_li >= thresholds[next_thr] - 1e-9:
-            for _ in range(2):
-                pull(li, phase, menu)
-                phase += 1
-            next_thr += 1
-        # ...plus, at the finest level, whatever the wall-clock budget
-        # still affords (the natural end of a scheduled run)
-        if li == 0 and cfg.time_budget_s is not None:
-            while (not exhausted(t0, cfg.time_budget_s)
-                   and phase < 1 + 2 * cfg.beta + _SCHED_MAX_EXTRA):
-                pull(li, phase, menu)
-                phase += 1
-        steps_done += 1
-        if li > 0 and (exhausted(t0, cfg.time_budget_s)
-                       or level_exhausted(steps_done, cfg.level_budget)):
-            parts, cuts = _fast_forward(hier, parts, li, cfg)
-            trace.append((hg.n, list(cuts), "budget-exhausted"))
-            degraded = True
-            break
+        for arm in REFINE_ARMS:
+            idxs = groups[arm]
+            if not idxs:
+                continue
+            entries = []
+            for i in idxs:
+                entries.append(_level_entry(
+                    st[i], st[i]["hier"].num_levels - 1 - t, cfgs[i]))
+            t_arm = time.perf_counter()
+            outs = instances_mod.refine_grouped(
+                entries, grid=grid,
+                fm_node_limit=0 if arm == "lp" else fm_limit,
+                max_iters=lp_iters, shard=cfgs[0].pop_shard,
+                model_shard=cfgs[0].model_shard, device=dev)
+            # the cuts are host values read back from the card, so the
+            # group's wall ends in a host sync
+            wall = time.perf_counter() - t_arm
+            for (rp, rc), i in zip(outs, idxs):
+                s, hier = st[i], st[i]["hier"]
+                li = hier.num_levels - 1 - t
+                s["parts"], s["cuts"] = rp, rc
+                s["sch"].observe(li, 0, arm,
+                                 s["before"] - float(np.min(rc)), wall)
+                s["trace"].append((hier.level_n(li), list(rc),
+                                   f"sched:{arm}@0"))
+        # optional slots and budgets: host work per request
+        for i, s in enumerate(st):
+            hier, cfg, sch = s["hier"], cfgs[i], s["sch"]
+            if s["degraded"] or t >= hier.num_levels:
+                continue
+            li = hier.num_levels - 1 - t
+            n_li = hier.level_n(li)
+            menu = _sched_menu(cfg)
+            phase = 1
 
-    parts = torch.as_tensor(parts).cpu().numpy()
-    best = int(np.argmin(cuts))
-    part, cut = parts[best][: hg.n], float(cuts[best])
-    if not degraded:
-        n_vc = 0
-        n_want = (sch.replay_final_vcycles() if sch.replaying
-                  else cfg.final_vcycles)
-        for v in range(n_want):
-            if not sch.replaying and exhausted(t0, cfg.time_budget_s):
-                break
-            part, cut = vcycle(hg, part, k, eps, seed=cfg.seed * 997 + v,
-                               shard=cfg.pop_shard,
-                               model_shard=cfg.model_shard, scheduler=sch,
-                               device=dev)
-            trace.append((hg.n, [cut], f"final-vcycle@{v}"))
-            n_vc += 1
-        sch.trace.final_vcycles = n_vc
-    return ImpartResult(
-        part=np.asarray(part, np.int32), cut=float(cut),
-        population_cuts=[float(c) for c in cuts], trace=trace,
-        wall_s=time.perf_counter() - t0, levels=hier.sizes(),
-        degraded=degraded, sched_trace=sch.trace)
+            def pull():
+                arm = sch.choose(li, phase, menu)
+                s["parts"], s["cuts"] = _sched_pull(
+                    sch, arm, li, phase, hier, s["parts"], s["cuts"], cfg,
+                    dev)
+                s["trace"].append(
+                    (n_li, list(s["cuts"]), f"sched:{arm}@{phase}"))
+
+            if sch.replaying:
+                while sch.replay_pending(li, phase):
+                    pull()
+                    phase += 1
+                continue
+            while (s["next_thr"] < cfg.beta
+                   and n_li >= s["thresholds"][s["next_thr"]] - 1e-9):
+                for _ in range(2):
+                    pull()
+                    phase += 1
+                s["next_thr"] += 1
+            if li == 0 and cfg.time_budget_s is not None:
+                while (not exhausted(t0, cfg.time_budget_s)
+                       and phase < 1 + 2 * cfg.beta + _SCHED_MAX_EXTRA):
+                    pull()
+                    phase += 1
+            s["steps"] += 1
+            if li > 0 and (exhausted(t0, cfg.time_budget_s)
+                           or level_exhausted(s["steps"],
+                                              cfg.level_budget)):
+                s["parts"], s["cuts"] = _fast_forward(hier, s["parts"], li,
+                                                      cfg)
+                s["trace"].append(
+                    (hgs[i].n, list(s["cuts"]), "budget-exhausted"))
+                s["degraded"] = True
+    return _instances_results(hgs, cfgs, st, t0, dev)

@@ -1,0 +1,529 @@
+"""Instance axis: independent partition requests refined together
+(port of ``repro.core.instances``; DESIGN.md §12).
+
+The population axis batches many candidate solutions of one hypergraph;
+this module adds the axis above it: many hypergraphs, each with its own
+population, refined as one ``[instance, alpha, n_pad]`` stack.
+
+Shape buckets.  Instances group by ``(n_pad bucket, k bucket)`` (the
+pow2 rebucketing of the coarsener, optionally rounded up to a ``grid``)
+and a group stacks after every level is re-padded to the group maxima.
+Re-padding keeps every answer: padded vertices carry zero weight and
+never propose, padded edges carry zero weight and no pins, new pad pins
+point at the old ghosts, and under the stable sort of
+``refine.accept_moves`` non-proposers rank after every proposer.  The FM
+step budget ``min(n_pad, 1024)`` and the balance cap are taken from the
+ORIGINAL arrays, so bucketing never changes a trip count or a cap.
+
+Per-instance k.  A bucket's gain tensors are ``k_pad`` wide (the pow2
+bucket) and a per-row ``k_live`` masks the columns a row's instance does
+not have to NEG; the first maximum of the masked row-major order is the
+solo one, so proposals, FM moves and tie-breaks are the solo run's.
+
+How a stack runs.  The reference ``jax.vmap``s its population tiers
+over the instance axis; the port has no ``vmap`` of its hand-written
+kernels and needs none.  A group's instances are laid end to end in one
+*union* level (instance i's vertex ids offset by ``i * n_pad``, its edge
+ids by ``i * m_pad``, its incidence layout's edge ids likewise), and the
+stack is refined as one population of ``alpha * I`` rows, row
+``a * I + i`` being member a of instance i.  Pin-level work (Φ, the gain
+assembly) runs once on the union: in that order a member's rows of all
+instances are one contiguous union row, so ``[R, n_pad]`` and
+``[alpha, I * n_pad]`` are views of one tensor, and one LP round's gains
+of every instance and member are ONE launch of the gain kernel (#1 at
+``k_pad <= 32``, #2 above) on the card.  Row-level work (argmax,
+``accept_moves``, block weights, the cut, FM's moves) runs per row, each
+row with its instance's cap, ``k_live``, ``live`` flag and FM budget as
+device tensors.  All gains are integer-valued sums, so the union's
+kernel path gives the solo segment-sum path's bits.
+
+The loops follow the solo ones (``refine.lp_refine_population``,
+``fm_refine_population``) with masks where those compact: a row that
+improved or converged stays in the dispatch with ``live`` False, and
+since every row's trajectory depends on its own state alone, each
+instance gets the bits of ``refine.refine_population`` on it alone.
+
+Only the single-device ``off`` route exists in this slice; the mesh and
+chunk routes and incumbent entries (bounded migration, DESIGN.md §14)
+raise ``NotImplementedError`` naming the slice that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.env import resolve_device
+from .hypergraph import HypergraphArrays, _round_pow2
+from . import metrics
+from . import refine as refine_mod
+
+#: Extents the gain kernel indexes with 32-bit integers
+#: (``kernels/gain.py``): a group whose union would pass one splits into
+#: sub-groups.
+_INT32_LIMIT = 2 ** 31
+
+
+def k_bucket(k: int) -> int:
+    """pow2 bucket of a block count (floor 2): instances of different k
+    share a stack at ``k_pad`` and mask with ``k_live``."""
+    return _round_pow2(int(k), floor=2)
+
+
+def bucket_n_pad(n_pad: int, grid: Optional[Sequence[int]] = None) -> int:
+    """The stacking bucket of a vertex padding: the smallest ``grid``
+    entry >= ``n_pad``; without a grid, or above its top entry, the
+    natural pow2 padding is its own bucket."""
+    if grid:
+        for g in sorted(int(x) for x in grid):
+            if g >= n_pad:
+                return g
+    return int(n_pad)
+
+
+def group_key(hga: HypergraphArrays, k: int,
+              grid: Optional[Sequence[int]] = None) -> Tuple[int, int]:
+    """Dispatch-group key of one instance: (n_pad bucket, k bucket)."""
+    return (bucket_n_pad(hga.n_pad, grid), k_bucket(k))
+
+
+def _repad(h: HypergraphArrays, n_pad: int, m_pad: int, p_pad: int
+           ) -> HypergraphArrays:
+    """Extend a level's padding to the bucket's.  The old ghost vertex
+    and edge keep zero weight, so pins that point at them stay inert,
+    and the new pad pins point at them too; the incidence layout gains
+    rows of pads (-1)."""
+    if (h.n_pad, h.m_pad, h.p_pad) == (n_pad, m_pad, p_pad):
+        return h
+
+    def extend(x, size, fill):
+        return torch.cat([x, torch.full((size - x.shape[0],) + x.shape[1:],
+                                        fill, dtype=x.dtype,
+                                        device=x.device)])
+
+    return HypergraphArrays(
+        pin_vertex=extend(h.pin_vertex, p_pad, h.n_pad - 1),
+        pin_edge=extend(h.pin_edge, p_pad, h.m_pad - 1),
+        vertex_weights=extend(h.vertex_weights, n_pad, 0.0),
+        edge_weights=extend(h.edge_weights, m_pad, 0.0),
+        edge_sizes=extend(h.edge_sizes, m_pad, 0),
+        n=h.n, m=h.m,
+        incident=None if h.incident is None else extend(h.incident, n_pad,
+                                                        -1))
+
+
+@dataclasses.dataclass
+class InstanceBatch:
+    """A stacked shape bucket.  ``hga`` holds the re-padded levels'
+    leaves stacked over the instance axis ([I, ...]; ``n``/``m`` are [I]
+    tensors and ``incident``, when every level has one, [I, n_pad, D]),
+    so its shape properties do not apply: use ``n_pad``/``m_pad`` here,
+    ``union()`` for the levels end to end, and ``rows(alpha)`` for the
+    row geometry the refinement tiers run on."""
+    hga: HypergraphArrays
+    k_pad: int                   # block-count bucket
+    k_live: torch.Tensor         # [I] int32 true k of each instance
+    cap: torch.Tensor            # [I] f32 balance cap of each instance
+    fm_steps: torch.Tensor       # [I] int32 solo FM budget min(n_pad, 1024)
+    ns: Tuple[int, ...]          # true vertex counts
+    ks: Tuple[int, ...]          # true block counts
+    orig_n_pads: Tuple[int, ...]  # natural paddings before bucketing
+    _union: Optional[HypergraphArrays] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def n_instances(self) -> int:
+        return len(self.ns)
+
+    @property
+    def n_pad(self) -> int:
+        return int(self.hga.vertex_weights.shape[1])
+
+    @property
+    def m_pad(self) -> int:
+        return int(self.hga.edge_weights.shape[1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.hga.vertex_weights.device
+
+    def union(self) -> HypergraphArrays:
+        """The instances end to end as one level (built once): vertex ids
+        offset by ``i * n_pad``, edge ids by ``i * m_pad``, in the
+        incidence layout too (pads stay -1).  Its ``n``/``m`` are the
+        padded totals; the true sizes live in the rows' masks."""
+        if self._union is None:
+            h, num = self.hga, self.n_instances
+            ids = torch.arange(num, dtype=torch.int32, device=self.device)
+            v_off, e_off = ids[:, None] * self.n_pad, ids[:, None] * self.m_pad
+            inc = None
+            if h.incident is not None:
+                inc = torch.where(h.incident >= 0,
+                                  h.incident + e_off[:, :, None], -1)
+                inc = inc.reshape(num * self.n_pad, -1).contiguous()
+            self._union = HypergraphArrays(
+                pin_vertex=(h.pin_vertex + v_off).reshape(-1),
+                pin_edge=(h.pin_edge + e_off).reshape(-1),
+                vertex_weights=h.vertex_weights.reshape(-1),
+                edge_weights=h.edge_weights.reshape(-1),
+                edge_sizes=h.edge_sizes.reshape(-1),
+                n=num * self.n_pad, m=num * self.m_pad, incident=inc)
+        return self._union
+
+    def rows(self, alpha: int) -> "_StackRows":
+        """The stack as ``alpha * I`` rows of one population."""
+        return _StackRows(self, alpha)
+
+
+class _StackRows:
+    """The rows of a stack, row ``a * I + i`` member a of instance i:
+    the attributes and methods ``refine._Level`` gives a single level,
+    so ``refine``'s population tiers run the stack unchanged.  Pin-level
+    work goes through the union, row-level work per row."""
+
+    def __init__(self, batch: InstanceBatch, alpha: int):
+        h = batch.hga
+        self.batch, self.alpha = batch, alpha
+        self.n_pad, self.m_pad = batch.n_pad, batch.m_pad
+        self.union = batch.union()
+        self.vertex_weights = h.vertex_weights.repeat(alpha, 1)  # [R, n_pad]
+        self.edge_weights = h.edge_weights.repeat(alpha, 1)      # [R, m_pad]
+        self.n = h.n.repeat(alpha)
+        self.cap = batch.cap.repeat(alpha)[:, None]               # [R, 1]
+        self.k_live = batch.k_live.repeat(alpha)
+        self.fm_steps = batch.fm_steps.repeat(alpha)
+        self._pins = None
+
+    @property
+    def valid(self) -> torch.Tensor:
+        arange = torch.arange(self.n_pad, device=self.n.device)
+        return (arange[None] < self.n[:, None]) & (self.vertex_weights > 0)
+
+    def _union_view(self, x: torch.Tensor) -> torch.Tensor:
+        """[R, n, ...] rows as [alpha, I * n, ...] union rows (a view)."""
+        return x.reshape((self.alpha, -1) + tuple(x.shape[2:]))
+
+    def phi(self, parts: torch.Tensor, k: int) -> torch.Tensor:
+        phi = metrics.pins_in_block_population(
+            self.union, self._union_view(parts), k)
+        return phi.reshape(parts.shape[0], self.m_pad, k)
+
+    def block_weights(self, parts: torch.Tensor, k: int) -> torch.Tensor:
+        return torch.zeros((parts.shape[0], k), dtype=torch.float32,
+                           device=parts.device).scatter_add_(
+                               1, parts.long(), self.vertex_weights)
+
+    def cuts(self, parts: torch.Tensor, k: int) -> torch.Tensor:
+        """[R] f32: ``metrics.cutsize_population``'s sum, per row."""
+        lam = (self.phi(parts, k) > 0).sum(-1)
+        return torch.where(lam > 1, self.edge_weights, 0.0).sum(-1)
+
+    def gains(self, parts: torch.Tensor, k: int, assemble: str = "auto",
+              phi: torch.Tensor | None = None) -> torch.Tensor:
+        """[R, n_pad, k]: the union's gains, one dispatch for every row
+        (``ops.gain_path`` on the union picks the path)."""
+        g = metrics._gain_matrix_population_impl(
+            self.union, self._union_view(parts), k, assemble=assemble,
+            phi=None if phi is None else self._union_view(phi))
+        return g.reshape(parts.shape[0], self.n_pad, k)
+
+    def prepare_fm(self) -> None:
+        """Each row's own pins, built before a CUDA graph captures FM."""
+        h = self.batch.hga
+        self._pins = (h.pin_vertex.repeat(self.alpha, 1),
+                      h.pin_edge.long().repeat(self.alpha, 1))
+
+    def pin_delta(self, v: torch.Tensor) -> torch.Tensor:
+        """[R, m_pad] int32: the pins of vertex ``v[r]`` of row r's
+        instance on each of its edges."""
+        pv, pe = self._pins
+        d = (pv == v[:, None]).to(torch.int32)                    # [R, P]
+        return torch.zeros((v.shape[0], self.m_pad), dtype=torch.int32,
+                           device=v.device).scatter_add_(1, pe, d)
+
+
+def stack_instances(hgas: Sequence[HypergraphArrays], ks: Sequence[int],
+                    epss: Sequence[float],
+                    grid: Optional[Sequence[int]] = None,
+                    incumbents: Optional[Sequence] = None,
+                    mig_budgets: Optional[Sequence] = None) -> InstanceBatch:
+    """Stack independent levels (all on one device) into one bucket
+    batch: the targets are the group's per-axis maxima (``grid`` rounds
+    the vertex axis), each level re-padded inertly first."""
+    if not (len(hgas) == len(ks) == len(epss)):
+        raise ValueError("hgas/ks/epss length mismatch")
+    if any(x is not None for x in (incumbents or ())) or any(
+            x is not None for x in (mig_budgets or ())):
+        refine_mod._later_slice("incumbents / mig_budgets",
+                                "incremental repartitioning")
+    dev = hgas[0].device
+    if any(h.device != dev for h in hgas):
+        raise ValueError("instances of one stack must share a device")
+    n_pad = bucket_n_pad(max(h.n_pad for h in hgas), grid)
+    m_pad = max(h.m_pad for h in hgas)
+    p_pad = max(h.p_pad for h in hgas)
+    k_pad = max(k_bucket(k) for k in ks)
+    # caps and FM budgets from the ORIGINAL arrays: the step budget must
+    # be the one a solo run at the natural padding uses
+    cap = torch.stack([refine_mod._cap_for(h, k, eps).to(torch.float32)
+                       for h, k, eps in zip(hgas, ks, epss)])
+    fm_steps = torch.tensor([min(h.n_pad, 1024) for h in hgas],
+                            dtype=torch.int32, device=dev)
+    rep = [_repad(h, n_pad, m_pad, p_pad) for h in hgas]
+    incident = None
+    if all(r.incident is not None for r in rep):
+        d = max(r.incident.shape[1] for r in rep)
+        incident = torch.stack([torch.nn.functional.pad(
+            r.incident, (0, d - r.incident.shape[1]), value=-1)
+            for r in rep])
+    stacked = HypergraphArrays(
+        **{f: torch.stack([getattr(r, f) for r in rep])
+           for f in ("pin_vertex", "pin_edge", "vertex_weights",
+                     "edge_weights", "edge_sizes")},
+        n=torch.tensor([int(h.n) for h in hgas], device=dev),
+        m=torch.tensor([int(h.m) for h in hgas], device=dev),
+        incident=incident)
+    return InstanceBatch(
+        hga=stacked, k_pad=k_pad,
+        k_live=torch.tensor([int(k) for k in ks], dtype=torch.int32,
+                            device=dev),
+        cap=cap, fm_steps=fm_steps,
+        ns=tuple(int(h.n) for h in hgas), ks=tuple(int(k) for k in ks),
+        orig_n_pads=tuple(h.n_pad for h in hgas))
+
+
+def stack_parts(parts_list: Sequence, n_pad: int,
+                device: str | torch.device | None = None) -> torch.Tensor:
+    """[A, n_i]-per-instance populations -> one [I, A, n_pad] int32
+    stack (on ``device``, else where the populations are)."""
+    rows = [refine_mod.pad_parts(p, n_pad, device) for p in parts_list]
+    alphas = {r.shape[0] for r in rows}
+    if len(alphas) != 1:
+        raise ValueError(f"instances must share alpha, got {alphas}")
+    return torch.stack(rows)
+
+
+def _take_i(batch: InstanceBatch, idx) -> InstanceBatch:
+    """Slice an instance subset out of a stacked batch (host indices)."""
+    idx = [int(i) for i in idx]
+    j = torch.as_tensor(idx, device=batch.device)
+    h = batch.hga
+    sub = HypergraphArrays(
+        pin_vertex=h.pin_vertex[j], pin_edge=h.pin_edge[j],
+        vertex_weights=h.vertex_weights[j], edge_weights=h.edge_weights[j],
+        edge_sizes=h.edge_sizes[j], n=h.n[j], m=h.m[j],
+        incident=None if h.incident is None else h.incident[j])
+    return InstanceBatch(
+        hga=sub, k_pad=batch.k_pad, k_live=batch.k_live[j],
+        cap=batch.cap[j], fm_steps=batch.fm_steps[j],
+        ns=tuple(batch.ns[i] for i in idx),
+        ks=tuple(batch.ks[i] for i in idx),
+        orig_n_pads=tuple(batch.orig_n_pads[i] for i in idx))
+
+
+def _cutsize_instances(batch: InstanceBatch, parts) -> torch.Tensor:
+    """[I, A] f32 cut of every member of every instance (blocks
+    ``>= k_live`` are empty, so the ``k_pad`` sum is exact)."""
+    parts = torch.as_tensor(parts, device=batch.device)
+    num, alpha, _ = parts.shape
+    rows = parts.transpose(0, 1).reshape(alpha * num, -1)
+    return batch.rows(alpha).cuts(rows, batch.k_pad).reshape(
+        alpha, num).T
+
+
+def _to_rows(batch: InstanceBatch, parts) -> torch.Tensor:
+    """[I, A, n_pad] -> rows [A * I, n_pad] (row a * I + i)."""
+    parts = torch.as_tensor(parts, device=batch.device).to(torch.int32)
+    return parts.transpose(0, 1).reshape(-1, batch.n_pad).contiguous()
+
+
+def _from_rows(batch: InstanceBatch, rows: torch.Tensor) -> torch.Tensor:
+    num = batch.n_instances
+    return rows.reshape(-1, num, batch.n_pad).transpose(0, 1).contiguous()
+
+
+def lp_refine_instances(batch: InstanceBatch, parts, max_iters: int = 24,
+                        patience: int = 3, shard: Optional[str] = None,
+                        model_shard: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, np.ndarray]:
+    """``refine.lp_refine_population`` for a stacked bucket: the solo
+    loop with a ``live`` row mask where it compacts, per-row stall
+    counters, and one read of the improvement flag per attempt for the
+    whole group.  Returns (parts [I, A, n_pad] int32 on the batch's
+    device, cuts [I, A] float64), each instance bit-equal to its solo
+    run."""
+    refine_mod._check_slice_options(shard=shard, model_shard=model_shard)
+    dev, k = batch.device, batch.k_pad
+    rows = _to_rows(batch, parts)
+    num_rows = rows.shape[0]
+    lv = batch.rows(num_rows // batch.n_instances)
+    cuts = lv.cuts(rows, k)  # f32 on the device, as the solo loop passes
+    stall = np.zeros(num_rows, np.int32)
+    done = np.zeros(num_rows, bool)
+    for _ in range(max_iters):
+        if done.all():
+            break
+        active = ~done
+        improved_round = np.zeros(num_rows, bool)
+        live_h = active.copy()
+        fracs = torch.ones(num_rows, dtype=torch.float32, device=dev)
+        remaining = 5
+        while remaining > 0 and live_h.any():
+            live = torch.as_tensor(live_h, device=dev)
+            rows, cuts, improved, fracs, used = \
+                refine_mod._lp_attempt_population_impl(
+                    lv, rows, cuts, fracs, remaining, k, lv.cap,
+                    live=live, k_live=lv.k_live)
+            improved = improved.cpu().numpy()
+            improved_round |= improved
+            remaining -= used
+            live_h &= ~improved
+        stall = np.where(active, np.where(improved_round, 0, stall + 1),
+                         stall)
+        done |= stall >= patience
+    cuts = cuts.cpu().numpy().astype(np.float64)
+    return (_from_rows(batch, rows),
+            cuts.reshape(-1, batch.n_instances).T.copy())
+
+
+def fm_refine_instances(batch: InstanceBatch, parts,
+                        max_passes: int = 8, shard: Optional[str] = None,
+                        model_shard: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, np.ndarray]:
+    """``refine.fm_refine_population`` for a stacked bucket: every pass
+    runs all rows, converged rows frozen through ``live``, each row
+    capped at its instance's solo step budget.  The pass is as long as
+    the largest budget; on the card it replays one CUDA graph."""
+    refine_mod._check_slice_options(shard=shard, model_shard=model_shard)
+    dev, k = batch.device, batch.k_pad
+    rows = _to_rows(batch, parts)
+    num_rows = rows.shape[0]
+    lv = batch.rows(num_rows // batch.n_instances)
+    cuts = lv.cuts(rows, k).cpu().numpy().astype(np.float64)
+    done = np.zeros(num_rows, bool)
+    for _ in range(max_passes):
+        if done.all():
+            break
+        cands, cs = refine_mod._fm_pass_population_impl(
+            lv, rows, k, lv.cap, lv.fm_steps, k_live=lv.k_live,
+            live=torch.as_tensor(~done, device=dev))
+        cs = cs.cpu().numpy().astype(np.float64)
+        take = (cs < cuts - 1e-6) & ~done
+        rows = torch.where(torch.as_tensor(take, device=dev)[:, None],
+                           cands, rows)
+        cuts = np.where(take, cs, cuts)
+        done |= ~take
+    return (_from_rows(batch, rows),
+            cuts.reshape(-1, batch.n_instances).T.copy())
+
+
+def refine_instances(batch: InstanceBatch, parts,
+                     fm_node_limit: int = 4096, max_iters: int = 24,
+                     patience: int = 3, shard: Optional[str] = None,
+                     model_shard: Optional[str] = None
+                     ) -> Tuple[torch.Tensor, np.ndarray]:
+    """Two-tier refinement of a stacked bucket, the instance-axis mirror
+    of ``refine.refine_population``: LP on every instance, then FM on
+    the sub-batch of instances whose true n is within
+    ``fm_node_limit``, the decision the solo driver makes."""
+    parts, cuts = lp_refine_instances(batch, parts, max_iters=max_iters,
+                                      patience=patience, shard=shard,
+                                      model_shard=model_shard)
+    fm_idx = [i for i, n in enumerate(batch.ns) if n <= fm_node_limit]
+    if len(fm_idx) == batch.n_instances:
+        parts, cuts = fm_refine_instances(batch, parts, shard=shard,
+                                          model_shard=model_shard)
+    elif fm_idx:
+        sel = torch.as_tensor(fm_idx, device=batch.device)
+        sp, sc = fm_refine_instances(_take_i(batch, fm_idx), parts[sel],
+                                     shard=shard, model_shard=model_shard)
+        parts[sel] = sp
+        cuts[fm_idx] = sc
+    return parts, cuts
+
+
+def _entry_d(hga: HypergraphArrays) -> int:
+    return 0 if hga.incident is None else int(hga.incident.shape[1])
+
+
+def dispatch_groups(entries, grid: Optional[Sequence[int]] = None
+                    ) -> List[List[int]]:
+    """The stacks ``refine_grouped`` dispatches: entry indices grouped
+    by ``group_key`` (first-seen order), each group cut, in order, into
+    runs whose union stays inside the gain kernel's int32 extents
+    (alpha * I * m_pad * k_pad, alpha * I * n_pad * k_pad and
+    I * n_pad * D below 2**31)."""
+    groups: dict = {}
+    for i, e in enumerate(entries):
+        groups.setdefault(group_key(e[0], e[2], grid), []).append(i)
+    out: List[List[int]] = []
+    for (n_pad, k_pad), idx in groups.items():
+        run: List[int] = []
+        m_pad = d = 0
+        for i in idx:
+            hga, parts = entries[i][0], entries[i][1]
+            alpha = len(parts)
+            m_try, d_try = max(m_pad, hga.m_pad), max(d, _entry_d(hga))
+            size = len(run) + 1
+            if run and max(alpha * size * m_try * k_pad,
+                           alpha * size * n_pad * k_pad,
+                           size * n_pad * d_try) >= _INT32_LIMIT:
+                out.append(run)
+                run, m_try, d_try = [], hga.m_pad, _entry_d(hga)
+            run.append(i)
+            m_pad, d = m_try, d_try
+        out.append(run)
+    return out
+
+
+def refine_grouped(entries, grid: Optional[Sequence[int]] = None,
+                   fm_node_limit: int = 4096, max_iters: int = 24,
+                   patience: int = 3, shard: Optional[str] = None,
+                   model_shard: Optional[str] = None,
+                   device: str | torch.device = "cuda"
+                   ) -> List[Tuple[torch.Tensor, np.ndarray]]:
+    """Refine a heterogeneous set of instances by bucketed stacks on
+    ``device``, where every entry's level must live.
+
+    ``entries``: ``(hga, parts [A, n_pad_i], k, eps)`` tuples; the
+    incumbent entries of bounded migration (6-tuples) come with a later
+    slice.  Returns per-entry ``(parts [A, n_pad_i] int32 on the device,
+    cuts [A] float64)`` in input order, each bit-equal to
+    ``refine.refine_population`` on that entry alone, which is what a
+    stack of one entry runs.  This is the dispatch unit the V-cycle
+    drivers and the partition service share.
+    """
+    refine_mod._check_slice_options(shard=shard, model_shard=model_shard)
+    if any(len(e) > 4 for e in entries):
+        refine_mod._later_slice("incumbent entries (incumbent, mig_budget)",
+                                "incremental repartitioning")
+    dev = resolve_device(device)
+    for e in entries:
+        if e[0].device.type != dev.type:
+            raise ValueError(f"an entry's level lives on {e[0].device}, "
+                             f"device={device!r} was requested")
+    out: List = [None] * len(entries)
+    for idx in dispatch_groups(entries, grid):
+        if len(idx) == 1:
+            # a stack of one is the solo level: refine it unpadded, with
+            # the population tiers' compaction of finished members
+            hga, parts, k, eps = entries[idx[0]]
+            out[idx[0]] = refine_mod.refine_population(
+                hga, parts, k, eps, fm_node_limit=fm_node_limit,
+                max_iters=max_iters, patience=patience, shard=shard,
+                model_shard=model_shard, device=dev)
+            continue
+        batch = stack_instances([entries[i][0] for i in idx],
+                                [entries[i][2] for i in idx],
+                                [entries[i][3] for i in idx], grid=grid)
+        parts = stack_parts([entries[i][1] for i in idx], batch.n_pad,
+                            batch.device)
+        rp, rc = refine_instances(batch, parts,
+                                  fm_node_limit=fm_node_limit,
+                                  max_iters=max_iters, patience=patience,
+                                  shard=shard, model_shard=model_shard)
+        for j, i in enumerate(idx):
+            out[i] = (rp[j][:, : batch.orig_n_pads[j]].contiguous(), rc[j])
+    return out

@@ -125,6 +125,31 @@ def edge_distance_matrix(hga: HypergraphArrays, parts: torch.Tensor,
     return (lam[:, None, :] - lam[None, :, :]).abs().sum(-1).to(torch.int32)
 
 
+def node_distance(part_a: torch.Tensor, part_b: torch.Tensor,
+                  valid_n: int | None = None) -> torch.Tensor:
+    """Hamming distance d_v of two partitions (int64 scalar), over the
+    first ``valid_n`` vertices when given; not label-invariant."""
+    neq = part_a != part_b
+    if valid_n is not None:
+        neq = neq & (torch.arange(part_a.shape[0],
+                                  device=part_a.device) < valid_n)
+    return neq.sum()
+
+
+def edge_distance(hga: HypergraphArrays, part_a: torch.Tensor,
+                  part_b: torch.Tensor, k: int) -> torch.Tensor:
+    """Label-invariant d_e (paper Eq. 2): the L1 distance of the two
+    connectivity vectors over the real edges (int64 scalar)."""
+    lam = connectivity_population(hga, torch.stack([part_a, part_b]), k)
+    return (lam[0, : hga.m].long() - lam[1, : hga.m].long()).abs().sum()
+
+
+def cut_edge_indicator(hga: HypergraphArrays, part: torch.Tensor,
+                       k: int) -> torch.Tensor:
+    """[m_pad] f32: 1.0 where the edge is cut."""
+    return (connectivity(hga, part, k) > 1).to(torch.float32)
+
+
 def balance_cap(total_weight: torch.Tensor, k: int,
                 eps: float) -> torch.Tensor:
     """The paper's constraint: W_i <= (1+eps) * ceil(W/k) (f32)."""

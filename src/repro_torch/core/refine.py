@@ -17,8 +17,11 @@ slacks), and the integer-valued weights make every sum exact.
 Both tiers guarantee: the returned partition never violates the balance
 cap and never has a larger cut than the input.  ``edge_weights_pop``
 gives every member its own edge-weight row over the shared structure
-(the mutation cohort, DESIGN.md §10).  Options of later slices (mesh
-sharding, bounded migration) raise ``NotImplementedError``.
+(the mutation cohort, DESIGN.md §10).  Both tiers also refine a stack of
+independent instances as rows of one population (``core.instances``,
+DESIGN.md §12), with each row's missing blocks, frozen state and FM step
+budget given as masks.  Options of later slices (mesh sharding, bounded
+migration) raise ``NotImplementedError``.
 
 The scalar entry points (``lp_round``, ``lp_refine``, ``fm_refine``,
 ``refine``) refine one partition; the baselines and recombination's
@@ -103,7 +106,8 @@ def accept_moves(part: torch.Tensor, target: torch.Tensor,
     Proposals (vertex -> target block, expected gain) are ranked by gain
     with a stable sort; the top ``frac`` are kept; per-target-block
     capacity is enforced with a prefix sum over the sorted proposal
-    weights.
+    weights.  ``vertex_weights`` is [n_pad] or one row per member, and
+    ``cap`` a scalar or [alpha, 1] (a stack of instances, DESIGN.md §12).
     """
     alpha, n_pad = part.shape
     order = torch.argsort(torch.where(propose, -gain, -NEG), dim=1,
@@ -114,7 +118,8 @@ def accept_moves(part: torch.Tensor, target: torch.Tensor,
     propose = propose & (ranks < keep_n[:, None])
 
     w_sorted = torch.gather(
-        torch.where(propose, vertex_weights[None], 0.0), 1, order)
+        torch.where(propose, vertex_weights.expand_as(propose), 0.0), 1,
+        order)
     tgt_sorted = torch.gather(torch.where(propose, target, k), 1,
                               order).long()          # k = "no move"
     # per-block prefix sums of the sorted proposal weights, laid out
@@ -132,23 +137,101 @@ def accept_moves(part: torch.Tensor, target: torch.Tensor,
     return torch.where(accept, target, part)
 
 
-def _lp_round_from_gains(h: HypergraphArrays, parts: torch.Tensor, k: int,
+class _Level:
+    """One level as the population tiers see it: ``hga`` refined as
+    rows [R, n_pad], one row a member, each on its own edge-weight row
+    of ``ew_pop`` [R, m_pad] when given; ``gain_weights`` [m_pad] biases
+    the LP gains only (``edge_weight_override``).
+
+    ``core.instances.InstanceBatch.rows`` answers the same questions for
+    a stack of instances, one row a (member, instance) pair, so both
+    tiers below run a stack through the same code."""
+
+    def __init__(self, hga: HypergraphArrays, ew_pop=None,
+                 gain_weights=None):
+        self.hga, self.ew_pop = hga, ew_pop
+        self.gain_hga = _with_weights(hga, gain_weights)
+        self.n_pad, self.m_pad = hga.n_pad, hga.m_pad
+        self.vertex_weights = hga.vertex_weights
+        self._pins = None
+
+    @property
+    def valid(self) -> torch.Tensor:
+        """[n_pad] bool: a real vertex that carries weight."""
+        h = self.hga
+        return ((torch.arange(h.n_pad, device=h.device) < h.n)
+                & (h.vertex_weights > 0))
+
+    def phi(self, parts: torch.Tensor, k: int) -> torch.Tensor:
+        return metrics.pins_in_block_population(self.hga, parts, k)
+
+    def block_weights(self, parts: torch.Tensor, k: int) -> torch.Tensor:
+        return metrics.block_weights_population(self.hga, parts, k)
+
+    def cuts(self, parts: torch.Tensor, k: int) -> torch.Tensor:
+        return _member_cuts(self.hga, parts, self.ew_pop, k)
+
+    def gains(self, parts: torch.Tensor, k: int, assemble: str = "auto",
+              phi: torch.Tensor | None = None) -> torch.Tensor:
+        return metrics._gain_matrix_population_impl(
+            self.gain_hga, parts, k, assemble=assemble, phi=phi,
+            ew_pop=self.ew_pop)
+
+    def prepare_fm(self) -> None:
+        """Build what the FM step reads, before a CUDA graph captures
+        it."""
+        h = self.hga
+        self._pins = (h.pin_vertex.long(), h.pin_edge.long())
+        if self.ew_pop is not None:
+            # the fixed-order gain sums of member rows read the level's
+            # pins sorted by vertex
+            metrics.pins_by_vertex(h)
+
+    def pin_delta(self, v: torch.Tensor) -> torch.Tensor:
+        """[R, m_pad] int32: the pins of vertex ``v[r]`` on each edge."""
+        pv, pe = self._pins
+        d = (pv[None, :] == v[:, None]).to(torch.int32)          # [R, P]
+        return torch.zeros((v.shape[0], self.m_pad), dtype=torch.int32,
+                           device=v.device).index_add_(1, pe, d)
+
+
+def _rows_of(hga, ew_pop=None):
+    """``hga`` itself when it already is a row geometry (a stack of
+    instances), else the level wrapped as one."""
+    if isinstance(hga, HypergraphArrays):
+        return _Level(hga, ew_pop)
+    return hga
+
+
+def _mask_blocks(x: torch.Tensor, k_live: torch.Tensor | None
+                 ) -> torch.Tensor:
+    """``x`` [R, n, k] with the columns ``j >= k_live[r]`` set to NEG: a
+    k_live-way instance refined in a k-padded bucket (DESIGN.md §12).
+    The columns below are untouched and both libraries' argmax takes the
+    first maximum in row-major order, so the choice is the solo one."""
+    if k_live is None:
+        return x
+    cols = torch.arange(x.shape[-1], device=x.device)
+    return torch.where(cols >= k_live[:, None, None], NEG, x)
+
+
+def _lp_round_from_gains(lv, parts: torch.Tensor, k: int,
                          cap: torch.Tensor, fracs: torch.Tensor,
-                         gains: torch.Tensor) -> torch.Tensor:
+                         gains: torch.Tensor,
+                         k_live: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     """Proposal + balanced acceptance given the population gain tensor
-    [alpha, n_pad, k]: every vertex proposes its best block (first
-    maximum), positive gains only."""
-    n_pad = h.n_pad
+    [R, n_pad, k] of the rows of ``lv``: every vertex proposes its best
+    block (first maximum), positive gains only.  ``k_live`` [R] masks the
+    blocks a row's instance does not have."""
     own = parts.long()[..., None] == torch.arange(k, device=parts.device)
-    gains = torch.where(own, NEG, gains)
+    gains = _mask_blocks(torch.where(own, NEG, gains), k_live)
     best_j = torch.argmax(gains, dim=-1)
     best_g = torch.gather(gains, 2, best_j[..., None])[..., 0]
-    valid = ((torch.arange(n_pad, device=parts.device) < h.n)
-             & (h.vertex_weights > 0))
-    propose = valid[None] & (best_g > 1e-9)
-    bw = metrics.block_weights_population(h, parts, k)
+    propose = lv.valid & (best_g > 1e-9)
+    bw = lv.block_weights(parts, k)
     return accept_moves(parts, best_j.to(torch.int32), best_g, propose,
-                        h.vertex_weights, bw, cap, fracs, k)
+                        lv.vertex_weights, bw, cap, fracs, k)
 
 
 def _with_weights(hga: HypergraphArrays,
@@ -159,41 +242,53 @@ def _with_weights(hga: HypergraphArrays,
     return dataclasses.replace(hga, edge_weights=edge_weight_override)
 
 
-def _lp_round_population_impl(hga: HypergraphArrays, parts: torch.Tensor,
-                              k: int, cap: torch.Tensor, fracs: torch.Tensor,
-                              edge_weight_override=None,
-                              edge_weights_pop=None) -> torch.Tensor:
-    """One LP round for all members: the gains of the whole population
-    come from one dispatch (one kernel launch on the kernel paths).
-    ``edge_weights_pop`` [alpha, m_pad] gives each member its own edge
-    weights; ``edge_weight_override`` [m_pad] biases all members."""
-    h = _with_weights(hga, edge_weight_override)
-    gains = metrics._gain_matrix_population_impl(h, parts, k,
-                                                 ew_pop=edge_weights_pop)
-    return _lp_round_from_gains(h, parts, k, cap, fracs, gains)
+def _lp_round_population_impl(lv, parts: torch.Tensor, k: int,
+                              cap: torch.Tensor, fracs: torch.Tensor,
+                              k_live: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """One LP round for all rows of ``lv``: the gains of the whole
+    population come from one dispatch (one kernel launch on the kernel
+    paths)."""
+    return _lp_round_from_gains(lv, parts, k, cap, fracs,
+                                lv.gains(parts, k), k_live)
 
 
-def _lp_attempt_population_impl(hga: HypergraphArrays, parts: torch.Tensor,
+def lp_round_population(hga: HypergraphArrays, parts, k: int,
+                        cap: torch.Tensor, fracs,
+                        edge_weight_override=None) -> torch.Tensor:
+    """One parallel move round for every member [alpha, n_pad] in one
+    dispatch, each at its own acceptance fraction ``fracs`` [alpha]."""
+    dev = hga.device
+    parts = torch.as_tensor(parts, device=dev).to(torch.int32)
+    fracs = torch.as_tensor(fracs, dtype=torch.float32, device=dev)
+    ewo = (None if edge_weight_override is None else torch.as_tensor(
+        edge_weight_override, dtype=torch.float32, device=dev))
+    return _lp_round_population_impl(_Level(hga, gain_weights=ewo), parts,
+                                     k, cap, fracs)
+
+
+def _lp_attempt_population_impl(lv, parts: torch.Tensor,
                                 cuts: torch.Tensor, fracs: torch.Tensor,
                                 attempts: int, k: int, cap: torch.Tensor,
-                                edge_weight_override=None,
-                                edge_weights_pop=None):
-    """The LP attempt loop: per member, propose a round at the current
+                                live: torch.Tensor | None = None,
+                                k_live: torch.Tensor | None = None):
+    """The LP attempt loop: per row, propose a round at the current
     acceptance fraction, measure the cut (on the true weights, or on the
-    member's own row of ``edge_weights_pop``), accept on improvement,
-    otherwise quarter the fraction and retry.  Returns as soon as any
-    member improved (the caller resumes the others), reading back one
-    flag per attempt.  Returns ``(parts, cuts, improved, fracs, used)``.
+    member's own row of ``ew_pop``), accept on improvement, otherwise
+    quarter the fraction and retry.  Returns as soon as any row improved
+    (the caller resumes the others), reading back one flag per attempt.
+    A row with ``live`` False never accepts and never raises that flag.
+    Returns ``(parts, cuts, improved, fracs, used)``.
     """
     improved = torch.zeros(parts.shape[0], dtype=torch.bool,
                            device=parts.device)
     used = 0
     while used < attempts:
-        cands = _lp_round_population_impl(hga, parts, k, cap, fracs,
-                                          edge_weight_override,
-                                          edge_weights_pop)
-        cs = _member_cuts(hga, cands, edge_weights_pop, k)
+        cands = _lp_round_population_impl(lv, parts, k, cap, fracs, k_live)
+        cs = lv.cuts(cands, k)
         take = cs < cuts - 1e-6
+        if live is not None:
+            take = take & live
         parts = torch.where(take[:, None], cands, parts)
         cuts = torch.where(take, cs, cuts)
         fracs = torch.where(take, fracs, fracs * 0.25)
@@ -228,7 +323,7 @@ def lp_round(hga: HypergraphArrays, part: torch.Tensor, k: int,
     h = _with_weights(hga, edge_weight_override)
     gains = metrics.gain_matrix(h, part, k)
     fracs = torch.full((1,), frac, dtype=torch.float32, device=part.device)
-    return _lp_round_from_gains(h, part[None], k, cap, fracs,
+    return _lp_round_from_gains(_Level(h), part[None], k, cap, fracs,
                                 gains[None])[0]
 
 
@@ -309,11 +404,11 @@ def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
                 sub_ew = ew_pop[idx_t] if len(idx) < alpha else ew_pop
             new_sub, new_cuts, improved, new_fracs, used = \
                 _lp_attempt_population_impl(
-                    hga, sub,
+                    _Level(hga, sub_ew, ewo), sub,
                     torch.as_tensor(cuts[idx], dtype=torch.float32,
                                     device=dev),
                     torch.as_tensor(fracs[idx], device=dev),
-                    remaining, k, cap, ewo, sub_ew)
+                    remaining, k, cap)
             improved = improved.cpu().numpy()
             if len(idx) < alpha:
                 parts[idx_t] = new_sub
@@ -334,82 +429,99 @@ def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
 # --------------------------------------------------------------------------
 # sequential FM for coarse levels
 # --------------------------------------------------------------------------
-def _fm_pass_population_impl(hga: HypergraphArrays, parts: torch.Tensor,
-                             k: int, cap: torch.Tensor, steps: int,
-                             edge_weights_pop: torch.Tensor | None = None
+def _fm_pass_population_impl(hga, parts: torch.Tensor, k: int,
+                             cap: torch.Tensor, steps,
+                             edge_weights_pop: torch.Tensor | None = None,
+                             k_live: torch.Tensor | None = None,
+                             live: torch.Tensor | None = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One FM pass for every member: up to ``steps`` single moves
-    (negative gains allowed), returning each member's best prefix
-    (partition + its cut).  With ``edge_weights_pop`` every member's
-    gains and cuts use its own edge-weight row.
+    """One FM pass for every row: up to ``steps`` single moves
+    (negative gains allowed), returning each row's best prefix
+    (partition + its cut).  ``hga`` is a level (each row a member; with
+    ``edge_weights_pop`` every member's gains and cuts use its own
+    edge-weight row) or the rows of a stack of instances
+    (``InstanceBatch.rows``), with ``cap`` [R, 1].
 
-    A member stops once no feasible move exists (every vertex locked or
+    The instance masks (DESIGN.md §12), each None for a plain level:
+    ``k_live`` [R] masks a row's missing blocks before the flat argmax;
+    a row with ``live`` False never moves; ``steps`` given as an [R]
+    tensor is each row's own budget, counted by a step index on the
+    device, so the pass runs the largest and a row freezes at its own.
+
+    A row stops once no feasible move exists (every vertex locked or
     infeasible); from then on its state is frozen, so the loop runs
-    until every member stopped or ``steps`` is reached, and reads the
-    flag only every ``FM_FLAG_EVERY`` steps — the result is the same as
+    until every row stopped or ``steps`` is reached, and reads the flag
+    only every ``FM_FLAG_EVERY`` steps — the result is the same as
     checking it after every move.  On the card those steps are replayed
-    as one CUDA graph (``_run_fm_steps``).
+    as one CUDA graph (``_run_fm_steps``), which reads every mask from a
+    tensor, so one capture serves the pass whatever the masks hold.
     """
+    lv = _rows_of(hga, edge_weights_pop)
     alpha, n_pad = parts.shape
     dev = parts.device
     rows = torch.arange(alpha, device=dev)
     arange_n = torch.arange(n_pad, device=dev)
-    vw = hga.vertex_weights
-    pv, pe = hga.pin_vertex.long(), hga.pin_edge.long()
-    valid = (arange_n < hga.n) & (vw > 0)
+    vw = lv.vertex_weights.expand(alpha, n_pad)
+    valid = lv.valid
     part = parts.clone()
-    phi = metrics.pins_in_block_population(hga, part, k)
-    bw = metrics.block_weights_population(hga, part, k)
-    cur_cut = _member_cuts(hga, part, edge_weights_pop, k)
+    phi = lv.phi(part, k)
+    bw = lv.block_weights(part, k)
+    cur_cut = lv.cuts(part, k)
     locked = torch.zeros((alpha, n_pad), dtype=torch.bool, device=dev)
     blocks = torch.arange(k, device=dev)
     feasible_slack = cap + 1e-6
-    if edge_weights_pop is not None:
-        # the fixed-order gain sums of member rows read the level's pins
-        # sorted by vertex: build them here, never inside the graph's
-        # capture
-        metrics.pins_by_vertex(hga)
+    if feasible_slack.dim():
+        feasible_slack = feasible_slack.reshape(-1, 1, 1)
+    budget = steps if torch.is_tensor(steps) else None
+    lv.prepare_fm()  # never inside the graph's capture
 
     def step(state):
-        part, phi, bw, locked, cur_cut, best_cut, best_part, _ = state
+        part, phi, bw, locked, cur_cut, best_cut, best_part = state[:7]
         # FM pins the segsum path: it only runs on coarse levels, whose
         # small pin counts make the [alpha, P, k] segment-sum cheaper per
         # move step than the compact path's fixed extract/scatter overhead
-        gains = metrics._gain_matrix_population_impl(
-            hga, part, k, assemble="segsum", phi=phi,
-            ew_pop=edge_weights_pop)
+        gains = lv.gains(part, k, assemble="segsum", phi=phi)
         own = part.long()[..., None] == blocks
-        feasible = (bw[:, None, :] + vw[None, :, None]) <= feasible_slack
-        score = torch.where(own | ~feasible, NEG, gains)
-        score = torch.where((locked | ~valid[None])[..., None], NEG, score)
+        feasible = (bw[:, None, :] + vw[..., None]) <= feasible_slack
+        score = _mask_blocks(torch.where(own | ~feasible, NEG, gains),
+                             k_live)
+        score = torch.where((locked | ~valid)[..., None], NEG, score)
         flat = torch.argmax(score.reshape(alpha, -1), dim=1)
         v = flat // k
         j = flat % k
         g = score.reshape(alpha, -1)[rows, flat]
         do = g > NEG / 2  # any feasible move at all?
+        if live is not None:
+            do = do & live
+        count = ()
+        if budget is not None:
+            do = do & (state[7] < budget)
+            count = (state[7] + 1,)
 
         b = part[rows, v].long()
-        d = (pv[None, :] == v[:, None]).to(torch.int32)         # [a, P]
-        d = torch.zeros((alpha, hga.m_pad), dtype=torch.int32,
-                        device=dev).index_add_(1, pe, d)         # [a, m_pad]
+        d = lv.pin_delta(v)                                      # [a, m_pad]
         delta = ((blocks == j[:, None]).to(torch.int32)
                  - (blocks == b[:, None]).to(torch.int32))      # [a, k]
         dm = do[:, None]
         moved = dm & (arange_n[None] == v[:, None])              # [a, n]
         phi = torch.where(dm[..., None], phi + d[..., None] * delta[:, None],
                           phi)
-        bw = torch.where(dm, bw + vw[v][:, None] * delta, bw)
+        bw = torch.where(dm, bw + vw[rows, v][:, None] * delta, bw)
         part = torch.where(moved, j.to(torch.int32)[:, None], part)
         locked = locked | moved
         cur_cut = torch.where(do, cur_cut - g, cur_cut)
         better = do & (cur_cut < best_cut - 1e-9)
         best_cut = torch.where(better, cur_cut, best_cut)
         best_part = torch.where(better[:, None], part, best_part)
-        return part, phi, bw, locked, cur_cut, best_cut, best_part, do
+        return ((part, phi, bw, locked, cur_cut, best_cut, best_part)
+                + count + (do,))
 
-    state = (part, phi, bw, locked, cur_cut, cur_cut.clone(), part.clone(),
-             torch.ones(alpha, dtype=torch.bool, device=dev))
-    state = _run_fm_steps(step, state, steps)
+    state = (part, phi, bw, locked, cur_cut, cur_cut.clone(), part.clone())
+    if budget is not None:
+        state += (torch.zeros((), dtype=torch.int32, device=dev),)
+    state += (torch.ones(alpha, dtype=torch.bool, device=dev),)
+    n_steps = int(budget.max()) if budget is not None else steps
+    state = _run_fm_steps(step, state, n_steps)
     return state[6], state[5]
 
 

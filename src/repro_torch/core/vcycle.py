@@ -7,9 +7,12 @@ Partition-aware coarsening: only same-block vertices merge, so the input
 partition projects exactly (same cut) onto every level; refinement then
 improves it on the way back up.
 
-``vcycle`` builds its hierarchy with ``dcoarsen.build_hierarchy`` (the
-numpy coarsener or the device engine, ``REPRO_COARSEN_PATH``) and walks
-it through the shared hierarchy protocol.  ``vcycle_population``
+``vcycle_instances`` (DESIGN.md §12) runs one V-cycle for a batch of
+independent requests: each builds its hierarchy with
+``dcoarsen.build_hierarchy`` (the numpy coarsener or the device engine,
+``REPRO_COARSEN_PATH``), and their refinement steps are grouped through
+``instances.refine_grouped``; ``vcycle`` is its batch of one.
+``vcycle_population``
 (DESIGN.md §10) is the mutation cohort's V-cycle: the members share one
 hierarchy built by ``dcoarsen.population_coarsen`` and differ only in
 their edge-weight rows; ``path="loop"`` runs the same pipeline member by
@@ -18,7 +21,7 @@ member (populations of one) as the per-member reference.
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +29,7 @@ import torch
 from repro_torch.env import resolve_device
 from .hypergraph import Hypergraph
 from .dcoarsen import build_hierarchy, population_coarsen
+from . import instances as instances_mod
 from . import refine as refine_mod
 from . import metrics
 from .scheduler import REFINE_ARMS, SCHED_VCYCLE_PHASE
@@ -41,7 +45,8 @@ def vcycle(hg: Hypergraph, part: np.ndarray, k: int, eps: float,
            device: str | torch.device = "cuda"
            ) -> Tuple[np.ndarray, float]:
     """One V-cycle on ``device``: partition-aware coarsening, then refine
-    back up with a population of one.
+    back up with a population of one (``vcycle_instances`` on a batch of
+    one request).
 
     ``eval_weights``: if given, the returned cut is measured with these
     edge weights.  Never returns a worse partition than the input
@@ -52,62 +57,117 @@ def vcycle(hg: Hypergraph, part: np.ndarray, k: int, eps: float,
     chosen and observed through it, under the context phase
     ``SCHED_VCYCLE_PHASE``, so replay covers the final V-cycles too.
     ``None`` is the static pipeline."""
-    dev = resolve_device(device)
-    part = np.asarray(part, np.int32)
-    hier = build_hierarchy(hg, k, seed=seed, restrict_part=part,
-                           contraction_limit_factor=contraction_limit_factor,
-                           model_shard=model_shard, device=dev)
-    num = hier.num_levels
-    cur = torch.as_tensor(hier.level_part(num - 1),
-                          device=dev).to(torch.int32)[None, :]
-    prev_best = None
-    for li in range(num - 1, -1, -1):
-        if li < num - 1:
-            cur = hier.project_pop(cur, li + 1)
-        hga = hier.level_arrays(li)
-        if scheduler is None:
-            cur, _ = refine_mod.refine_population(
-                hga, cur, k, eps, fm_node_limit=fm_node_limit, shard=shard,
-                model_shard=model_shard, device=dev)
-            continue
-        if prev_best is None:
-            # the exact projection keeps the cut, so only the coarsest
-            # level needs a measurement before its refinement
-            prev_best = float(metrics.cutsize(
-                hga, refine_mod.pad_part(cur[0][: hga.n_pad], hga.n_pad),
-                k))
-        arm = scheduler.choose(li, SCHED_VCYCLE_PHASE, REFINE_ARMS)
-        t_arm = time.perf_counter()
-        if arm == "lp":
-            cur, rc = refine_mod.lp_refine_population(
-                hga, cur, k, eps, shard=shard, model_shard=model_shard)
-        else:
-            cur, rc = refine_mod.refine_population(
-                hga, cur, k, eps, fm_node_limit=fm_node_limit, shard=shard,
-                model_shard=model_shard, device=dev)
-        # ``rc`` are host values read back from the card: the wall
-        # below ends in a host sync
-        new_best = float(np.min(np.asarray(rc)))
-        scheduler.observe(li, SCHED_VCYCLE_PHASE, arm, prev_best - new_best,
-                          time.perf_counter() - t_arm)
-        prev_best = new_best
-
-    out = cur[0].cpu().numpy()[: hg.n]
-    # elitism on the true (or the given) objective
-    true_hg = hg if eval_weights is None else hg.with_edge_weights(eval_weights)
-    hga0 = true_hg.arrays(device=dev)
-    cut_new, cut_old = (float(metrics.cutsize(
-        hga0, torch.from_numpy(_pad_part(p, hga0.n_pad)).to(dev), k))
-        for p in (out, part))
-    if cut_new <= cut_old + 1e-9:
-        return out, cut_new
-    return part, cut_old
+    return vcycle_instances(
+        [hg], [part], [k], [eps], seeds=[seed], fm_node_limit=fm_node_limit,
+        contraction_limit_factor=contraction_limit_factor,
+        eval_weights=[eval_weights], shard=shard, model_shard=model_shard,
+        schedulers=[scheduler], device=device)[0]
 
 
 def _pad_part(part: np.ndarray, n_pad: int) -> np.ndarray:
     out = np.zeros(n_pad, np.int32)
     out[: len(part)] = part
     return out
+
+
+def vcycle_instances(hgs: Sequence[Hypergraph], parts: Sequence,
+                     ks: Sequence[int], epss: Sequence[float],
+                     seeds: Optional[Sequence[int]] = None,
+                     fm_node_limit: int = 4096,
+                     contraction_limit_factor: int = 64,
+                     grid: Optional[Sequence[int]] = None,
+                     shard: Optional[str] = None,
+                     model_shard: Optional[str] = None,
+                     eval_weights: Optional[Sequence] = None,
+                     schedulers: Optional[Sequence] = None,
+                     device: str | torch.device = "cuda"
+                     ) -> List[Tuple[np.ndarray, float]]:
+    """One V-cycle for a batch of independent requests on ``device``
+    (DESIGN.md §12): each request builds its own partition-aware
+    hierarchy, then all requests walk their uncoarsening ladders in
+    lockstep, and at every step their current levels are refined
+    together through ``instances.refine_grouped``, one stacked dispatch
+    per shape bucket.  Each result is bit-equal to ``vcycle`` on that
+    request alone.  Returns ``[(part [n_i], cut), ...]``.
+
+    ``eval_weights`` and ``schedulers`` hold ``vcycle``'s arguments of
+    those names per request (``None`` entries allowed).  A step's
+    scheduled requests are grouped by the tier their scheduler chose,
+    the ``lp`` group dispatched with ``fm_node_limit=0``, and each
+    observes its group's wall."""
+    dev = resolve_device(device)
+    num_req = len(hgs)
+    seeds = list(seeds) if seeds is not None else [0] * num_req
+    eval_weights = (list(eval_weights) if eval_weights is not None
+                    else [None] * num_req)
+    schedulers = (list(schedulers) if schedulers is not None
+                  else [None] * num_req)
+    parts = [np.asarray(p, np.int32) for p in parts]
+    hiers, curs = [], []
+    for hg, part, k, seed in zip(hgs, parts, ks, seeds):
+        hier = build_hierarchy(
+            hg, k, seed=seed, restrict_part=part,
+            contraction_limit_factor=contraction_limit_factor,
+            model_shard=model_shard, device=dev)
+        hiers.append(hier)
+        curs.append(torch.as_tensor(hier.level_part(hier.num_levels - 1),
+                                    device=dev).to(torch.int32)[None, :])
+    prev_best: List[Optional[float]] = [None] * num_req
+    for t in range(max(h.num_levels for h in hiers)):
+        groups = {arm: [] for arm in REFINE_ARMS}
+        for i, hier in enumerate(hiers):
+            if t >= hier.num_levels:
+                continue
+            li = hier.num_levels - 1 - t
+            if li < hier.num_levels - 1:
+                curs[i] = hier.project_pop(curs[i], li + 1)
+            sch = schedulers[i]
+            if sch is None:
+                groups["lp_fm"].append(i)
+                continue
+            if prev_best[i] is None:
+                # the exact projection keeps the cut, so only the
+                # coarsest level needs a measurement before its refinement
+                hga = hier.level_arrays(li)
+                prev_best[i] = float(metrics.cutsize(
+                    hga, refine_mod.pad_part(curs[i][0][: hga.n_pad],
+                                             hga.n_pad), ks[i]))
+            groups[sch.choose(li, SCHED_VCYCLE_PHASE, REFINE_ARMS)].append(i)
+        for arm, idxs in groups.items():
+            if not idxs:
+                continue
+            t_arm = time.perf_counter()
+            outs = instances_mod.refine_grouped(
+                [(hiers[i].level_arrays(hiers[i].num_levels - 1 - t),
+                  curs[i], ks[i], epss[i]) for i in idxs], grid=grid,
+                fm_node_limit=0 if arm == "lp" else fm_node_limit,
+                shard=shard, model_shard=model_shard, device=dev)
+            # the cuts are host values read back from the card: the wall
+            # below ends in a host sync
+            wall = time.perf_counter() - t_arm
+            for (rp, rc), i in zip(outs, idxs):
+                curs[i] = rp
+                if schedulers[i] is None:
+                    continue
+                new_best = float(np.min(np.asarray(rc)))
+                schedulers[i].observe(hiers[i].num_levels - 1 - t,
+                                      SCHED_VCYCLE_PHASE, arm,
+                                      prev_best[i] - new_best, wall)
+                prev_best[i] = new_best
+
+    results = []
+    for i, (hg, part, k) in enumerate(zip(hgs, parts, ks)):
+        out = curs[i][0].cpu().numpy()[: hg.n]
+        # elitism on the true (or the given) objective
+        true_hg = (hg if eval_weights[i] is None
+                   else hg.with_edge_weights(eval_weights[i]))
+        hga0 = true_hg.arrays(device=dev)
+        cut_new, cut_old = (float(metrics.cutsize(
+            hga0, torch.from_numpy(_pad_part(p, hga0.n_pad)).to(dev), k))
+            for p in (out, part))
+        results.append((out, cut_new) if cut_new <= cut_old + 1e-9
+                       else (part, cut_old))
+    return results
 
 
 def vcycle_population(hg: Hypergraph, parts, ew_pop, k: int, eps: float,

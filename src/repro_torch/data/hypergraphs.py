@@ -10,7 +10,8 @@ heavy fanout tail, unit vertex and edge weights.
 """
 from __future__ import annotations
 
-from typing import Dict
+import zlib
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -120,3 +121,37 @@ BENCH_ISPD: Dict[str, Dict] = {
     "ibm07_like": {"n": 45926, "m": 48117, "seed": 207},
     "ibm08_like": {"n": 51309, "m": 50513, "seed": 208},
 }
+
+# mixed request sizes for the partition service: (n, m, k) tiers drawn
+# per request; small MoE-placement-sized instances dominate, with a
+# tail of larger reshard/netlist requests (DESIGN.md §12)
+_REQUEST_TIERS: Tuple[Dict, ...] = (
+    {"n": 280, "m": 380, "k": 4, "weight": 3},
+    {"n": 400, "m": 520, "k": 8, "weight": 3},
+    {"n": 620, "m": 800, "k": 6, "weight": 2},
+    {"n": 900, "m": 1150, "k": 8, "weight": 1},
+)
+
+
+def request_stream(count: int, tag: str = "service", scale: float = 1.0
+                   ) -> List[Dict]:
+    """Deterministic mixed-size request workload: ``count`` dicts
+    ``{name, hg, k, eps}``, each ``hg`` a modular netlist from one of the
+    ``_REQUEST_TIERS``.  Request ``i`` is drawn from a crc32 seed of
+    ``(tag, i)`` (builtin ``hash()`` is salted per process), so every run
+    and both packages give the same stream."""
+    reqs: List[Dict] = []
+    weights = np.asarray([t["weight"] for t in _REQUEST_TIERS], np.float64)
+    probs = weights / weights.sum()
+    for i in range(count):
+        seed = zlib.crc32(f"{tag}:{i}".encode()) % (2 ** 31)
+        rng = np.random.default_rng(seed)
+        tier = _REQUEST_TIERS[int(rng.choice(len(_REQUEST_TIERS),
+                                             p=probs))]
+        n = max(int(tier["n"] * scale), 64)
+        m = max(int(tier["m"] * scale), 96)
+        hg = _modular_netlist(n, m, seed=seed, n_modules=max(n // 64, 4),
+                              p_local=0.8, fanout_tail=1.5)
+        reqs.append({"name": f"{tag}-{i}", "hg": hg, "k": int(tier["k"]),
+                     "eps": 0.08 if i % 3 else 0.10})
+    return reqs

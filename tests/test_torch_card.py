@@ -17,7 +17,9 @@ exact in any order), of real weights with rel 1e-5 (the reference's own
 bar) and bit-equal over two launches; the embedding bag with 1e-5 in
 f32 and 2e-2 in bf16 (the kernel sums in f32 and rounds once); the
 rating sums rtol 1e-6 of the plain version (another order of addition),
-exact on integers; the gain kernels exactly (integer tables).
+exact on integers; the gain kernels exactly (integer tables).  The
+stacked refinement of the instance axis (``core.instances``) is held bit
+for bit too: its gains are integer-valued sums.
 """
 import ast
 from pathlib import Path
@@ -27,8 +29,12 @@ import pytest
 import torch
 
 from port_parity import assert_bit_equal
+from repro_torch.core import instances, metrics, refine
+from repro_torch.core.hypergraph import HypergraphArrays
+from repro_torch.core.vcycle import vcycle, vcycle_instances
+from repro_torch.data.hypergraphs import _modular_netlist, random_hypergraph
 from repro_torch.kernels import (build, connectivity, embedding_bag, gain,
-                                 rating, ref)
+                                 ops, rating, ref)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -274,6 +280,154 @@ def test_gain_stream_kernel_on_card(card, shape, trailing):
     assert torch.equal(got, gain.gain_stream_batch(inc, bi, wi))
     one = gain.gain_stream(inc, bi[-1].contiguous(), wi[-1].contiguous())
     assert torch.equal(one, ref.gain_stream_ref(inc, bi[-1], wi[-1]))
+
+
+# --------------------------------------------------------------------------
+# the instance axis: stacked refinement on the card
+# --------------------------------------------------------------------------
+def _netlist(n, m, seed):
+    return _modular_netlist(n, m, seed=seed, n_modules=max(n // 64, 4),
+                            p_local=0.8, fanout_tail=1.5)
+
+
+def _pad_only_level(n_pad, m_pad, p_pad, dev):
+    """A level with no vertex, edge or pin, only padding (its incidence
+    rows all pads)."""
+    return HypergraphArrays(
+        pin_vertex=torch.full((p_pad,), n_pad - 1, dtype=torch.int32,
+                              device=dev),
+        pin_edge=torch.full((p_pad,), m_pad - 1, dtype=torch.int32,
+                            device=dev),
+        vertex_weights=torch.zeros(n_pad, device=dev),
+        edge_weights=torch.zeros(m_pad, device=dev),
+        edge_sizes=torch.zeros(m_pad, dtype=torch.int32, device=dev),
+        n=0, m=0,
+        incident=torch.full((n_pad, 8), -1, dtype=torch.int32, device=dev))
+
+
+def _random_parts(hgas, ks, alpha, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, k, (alpha, h.n_pad)).astype(np.int32)
+            for h, k in zip(hgas, ks)]
+
+
+@pytest.mark.cuda
+def test_stacked_lp_gains_through_gain_kernel_on_card(card):
+    """One LP round's gains of a stack (k 5, 12 and 3 under k_pad 16, a
+    modular netlist and a random hypergraph whose layouts differ in D, and
+    a pad-only instance) come from ONE launch of the ``table`` kernel on
+    the union's layout, bit-equal to the segsum assembly and, row by row,
+    to each level's own gains; the masked LP round agrees too."""
+    hgas = [_netlist(300, 400, 3).arrays(device=card),
+            random_hypergraph(200, 500, seed=4).arrays(device=card)]
+    hgas.append(_pad_only_level(256, 256, 256, card))
+    assert hgas[0].incident.shape[1] != hgas[1].incident.shape[1]
+    ks = [5, 12, 3]
+    batch = instances.stack_instances(hgas, ks, [0.08, 0.1, 0.1])
+    assert batch.k_pad == 16 and batch.hga.incident is not None
+    alpha, k = 2, batch.k_pad
+    parts = instances.stack_parts(_random_parts(hgas, ks, alpha, 5),
+                                  batch.n_pad, card)
+    rows_geo = batch.rows(alpha)
+    rows = instances._to_rows(batch, parts)
+    union = batch.union()
+    assert ops.gain_path(union.m_pad, k, union.incident) == "table"
+    before = ops.launch_counts()["gain_table"]
+    got = rows_geo.gains(rows, k)
+    assert ops.launch_counts()["gain_table"] == before + 1
+    assert torch.equal(got, rows_geo.gains(rows, k, assemble="segsum"))
+    per_instance = got.reshape(alpha, len(hgas), batch.n_pad, k)
+    for i, h in enumerate(hgas[:2]):
+        own = metrics._gain_matrix_population_impl(
+            h, parts[i][:, : h.n_pad].contiguous(), k, assemble="segsum")
+        assert torch.equal(per_instance[:, i, : h.n], own[:, : h.n]), i
+    assert not per_instance[:, 2].any()
+    fracs = torch.ones(rows.shape[0], device=card)
+    moved = [refine._lp_round_from_gains(rows_geo, rows, k, rows_geo.cap,
+                                         fracs, g, k_live=rows_geo.k_live)
+             for g in (got, rows_geo.gains(rows, k, assemble="segsum"))]
+    assert torch.equal(*moved)
+    # blocks a row's instance does not have are never targets
+    assert bool((moved[0].long()
+                 < rows_geo.k_live[:, None].long()).logical_or(
+                     moved[0] == rows).all())
+
+
+@pytest.mark.cuda
+def test_stacked_fm_pass_in_cuda_graph_equals_eager_on_card(card):
+    """A stacked FM pass with mixed step budgets (256 and 512), k_live
+    below k_pad and one frozen row, replayed as CUDA graphs on the card,
+    bit-equal to the same steps run eagerly (on the CPU)."""
+    hgs = [_netlist(200, 260, 7), _netlist(300, 390, 8)]
+    out = []
+    for dev in (card, torch.device("cpu")):
+        hgas = [hg.arrays(device=dev) for hg in hgs]
+        batch = instances.stack_instances(hgas, [3, 6], [0.08, 0.12])
+        parts = instances.stack_parts(_random_parts(hgas, [3, 6], 2, 9),
+                                      batch.n_pad, dev)
+        geo = batch.rows(2)
+        live = torch.tensor([True, True, False, True], device=dev)
+        out.append(refine._fm_pass_population_impl(
+            geo, instances._to_rows(batch, parts), batch.k_pad, geo.cap,
+            geo.fm_steps, k_live=geo.k_live, live=live))
+    assert batch.fm_steps.tolist() == [256, 512]
+    for got, want in zip(*out):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_refine_grouped_matches_solo_on_card(card):
+    """The reference's parity specs (k 3, 8 and 5 under ``grid=(1024,)``):
+    each entry's grouped refinement bit-equal to its solo
+    ``refine_population`` on the card, the stack's LP on the ``table``
+    kernel."""
+    specs = [(280, 380, 1, 3, 0.08), (400, 520, 2, 8, 0.10),
+             (330, 430, 3, 5, 0.12)]
+    entries, solos = [], []
+    for i, (n, m, seed, k, eps) in enumerate(specs):
+        hg = _netlist(n, m, seed)
+        hga = hg.arrays(device=card)
+        rng = np.random.default_rng(10 + i)
+        parts = np.stack([refine.rebalance(
+            hg.vertex_weights, rng.integers(0, k, n).astype(np.int32), k,
+            eps) for _ in range(3)])
+        parts = refine.pad_parts(parts, hga.n_pad, card)
+        entries.append((hga, parts, k, eps))
+        solos.append(refine.refine_population(hga, parts.clone(), k, eps,
+                                              max_iters=4, device=card))
+    ops.reset_launch_counts()
+    outs = instances.refine_grouped(entries, grid=(1024,), max_iters=4,
+                                    device=card)
+    assert ops.launch_counts()["gain_table"] > 0
+    for i, ((gp, gc), (sp, sc)) in enumerate(zip(outs, solos)):
+        assert torch.equal(gp, sp), f"instance {i}"
+        assert np.array_equal(gc, sc), f"instance {i}"
+
+
+@pytest.mark.cuda
+def test_vcycle_instances_matches_solo_on_card(card):
+    """``vcycle_instances`` on the card: the parity specs' three requests
+    (k 3, 8 and 5 under ``grid=(1024,)``), each bit-equal in partition
+    and cut to ``vcycle`` on that request alone on the card."""
+    specs = [(280, 380, 1, 3, 0.08), (400, 520, 2, 8, 0.10),
+             (330, 430, 3, 5, 0.12)]
+    hgs, parts = [], []
+    for i, (n, m, seed, k, eps) in enumerate(specs):
+        hg = _netlist(n, m, seed)
+        rng = np.random.default_rng(20 + i)
+        hgs.append(hg)
+        parts.append(refine.rebalance(
+            hg.vertex_weights, rng.integers(0, k, n).astype(np.int32), k,
+            eps))
+    ks, epss = [s[3] for s in specs], [s[4] for s in specs]
+    ops.reset_launch_counts()
+    got = vcycle_instances(hgs, parts, ks, epss, seeds=[3, 3, 3],
+                           grid=(1024,), device=card)
+    assert ops.launch_counts()["gain_table"] > 0
+    for i, (hg, part, k, eps) in enumerate(zip(hgs, parts, ks, epss)):
+        solo_part, solo_cut = vcycle(hg, part, k, eps, seed=3, device=card)
+        assert np.array_equal(got[i][0], solo_part), f"request {i}"
+        assert got[i][1] == solo_cut, f"request {i}"
 
 
 # --------------------------------------------------------------------------

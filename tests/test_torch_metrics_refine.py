@@ -67,6 +67,52 @@ def test_partition_metrics_bit_equal(k, small_hg):
     assert_bit_equal(cap, jmetrics.balance_cap(hga.total_weight, k, 0.03))
 
 
+@pytest.mark.parametrize("fn", ["node_distance", "edge_distance",
+                                "cut_edge_indicator"])
+def test_similarity_metrics_bit_equal(fn, small_hg):
+    """The partition-similarity metrics (paper Sec. 3.2) and the cut-edge
+    indicator of mutation's reweighting."""
+    k = 6
+    hga = small_hg.structural_copy().arrays()
+    ph = port_arrays(hga)
+    parts = _parts(small_hg, k, 2, seed=21, n_pad=hga.n_pad)
+    pt, jp = torch.from_numpy(parts), jnp.asarray(parts)
+    if fn == "node_distance":
+        for valid_n in (None, small_hg.n // 2):
+            assert_bit_equal(
+                metrics.node_distance(pt[0], pt[1], valid_n),
+                jmetrics.node_distance(jp[0], jp[1], valid_n), fn)
+    elif fn == "edge_distance":
+        # label-invariant: a relabelled copy is at distance 0
+        relabel = torch.from_numpy(((parts[0] + 1) % k).astype(np.int32))
+        assert int(metrics.edge_distance(ph, pt[0], relabel, k)) == 0
+        assert_bit_equal(metrics.edge_distance(ph, pt[0], pt[1], k),
+                         jmetrics.edge_distance(hga, jp[0], jp[1], k), fn)
+    else:
+        assert_bit_equal(metrics.cut_edge_indicator(ph, pt[0], k),
+                         jmetrics.cut_edge_indicator(hga, jp[0], k), fn)
+
+
+def test_lp_round_population_bit_equal(small_hg):
+    """One population LP round, every member at its own acceptance
+    fraction, with and without an edge-weight override."""
+    k = 5
+    hga = small_hg.structural_copy().arrays()
+    ph = port_arrays(hga)
+    parts = _parts(small_hg, k, 3, seed=31, n_pad=hga.n_pad)
+    fracs = np.array([1.0, 0.25, 0.5], np.float32)
+    cap = jmetrics.balance_cap(hga.total_weight, k, 0.08)
+    ewo = np.asarray(hga.edge_weights) * 2.0
+    for override in (None, ewo):
+        want = jrefine.lp_round_population(
+            hga, jnp.asarray(parts), k, cap, jnp.asarray(fracs),
+            None if override is None else jnp.asarray(override))
+        got = refine.lp_round_population(
+            ph, parts, k, metrics.balance_cap(ph.total_weight, k, 0.08),
+            fracs, override)
+        assert_bit_equal(got, want, f"override {override is not None}")
+
+
 def test_accept_moves_bit_equal():
     rng = np.random.default_rng(0)
     n, k, alpha = 512, 6, 3
