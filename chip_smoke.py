@@ -57,7 +57,17 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    shape bucket on ``grid=(1024, 4096, 16384, 65536)``, every request
    bit-equal to its solo ``impart_partition``; one ``refine_grouped``
    call alone, which must launch the ``table`` gain kernel; and the
-   grouped bandit's traces replayed grouped and solo, bit for bit.
+   grouped bandit's traces replayed grouped and solo, bit for bit;
+12. incremental repartitioning (``incremental_partition``, DESIGN.md
+   §14) on ``ibm08_like`` at k=64 with the knobs of the reference's
+   incremental benchmark (alpha 4, lp_iters 8, migration_frac 0.15,
+   drift magnitude 0.15): a zero-drift refresh (cold, then resident,
+   bit-equal to a solve without state), four weight-drift steps
+   (replayed, with no coarsening round; a second state fed the same
+   stream must give the same bits), a pin edit (patched) and the weight
+   drift after it (replayed), and a k-change to 32 (resident, launching
+   the ``table`` gain kernel); every answer balanced, within its
+   migration budget and no worse than its incumbent.
 
 The kernel phase also holds the connectivity and cut kernels (#7/#8, at
 the reference's sweeps and at ``CUT_ODD``'s odd shapes) and the
@@ -73,8 +83,8 @@ its cut once more on the card through ``ops.connectivity`` and
 the ops route), which must agree with the host.
 
 ``--phases`` takes a comma list of
-``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances`` (default: all;
-empty for none) for runs that debug one phase; the kernels line is only printed
+``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances,incremental``
+(default: all; empty for none) for runs that debug one phase; the kernels line is only printed
 when every phase ran.  ``--repair-cost=DIR`` then times the static
 memetic run of the ``sched`` phase with its mutation seconds on the
 package under ``DIR`` (the ``src`` of a tree before the fixed-order sums
@@ -136,7 +146,7 @@ KERNEL_META = {
                       "src/repro/kernels/embedding_bag.py:66"),
 }
 PHASES = ("kernels", "cardtests", "parity", "off", "memetic", "cli", "ops",
-          "sched", "instances")
+          "sched", "instances", "incremental")
 
 # the largest level FM refines (``refine.refine_population``'s default)
 FM_NODE_LIMIT = 4096
@@ -1052,13 +1062,16 @@ def host_cut_and_balance(hg, part, k: int, eps: float):
                      and part.min() >= 0), float(bw.max()), float(cap)
 
 
-def card_cut_check(hg, part, k: int, host_cut: float, tag: str) -> dict:
+def card_cut_check(hg, part, k: int, host_cut: float, tag: str,
+                   rel: float = 0.0) -> dict:
     """The result's lambda and cut once more on the card, through the
     public ops on the design's pin matrix (kernels #7/#8 at k <= 32, the
-    plain versions above, as ``ops`` routes them); both must equal the
-    host's.  Zeroes the launch counters first (the caller has read its
-    path's) and returns the check's own launches, which must include #7
-    and #8 on the kernel route."""
+    plain versions above, as ``ops`` routes them); lambda must equal the
+    host's, and the cut too, or be within ``rel`` of it for real-valued
+    weights (the card adds f32, the host float64).  Zeroes the launch
+    counters first (the caller has read its path's) and returns the
+    check's own launches, which must include #7 and #8 on the kernel
+    route."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -1077,7 +1090,8 @@ def card_cut_check(hg, part, k: int, host_cut: float, tag: str) -> dict:
     print(f"[cutcheck] {tag} k={k} ops.connectivity/ops.cutsize route "
           f"{route}: card cut {cut!r} host cut {host_cut!r}; the check's "
           f"launches {counts}")
-    if cut != host_cut or not np.array_equal(lam, host_lambda(hg, part, k)):
+    if (abs(cut - host_cut) > rel * abs(host_cut)
+            or not np.array_equal(lam, host_lambda(hg, part, k))):
         raise AssertionError(f"{tag}: card cut {cut} (or lambda) differs "
                              f"from the host's {host_cut}")
     if k <= KERNEL_MAX_K and not (counts.get("connectivity")
@@ -1749,6 +1763,269 @@ def run_instances_path(must_launch):
     return total
 
 
+# the incremental phase: ISPD98 ibm08 at its published counts, and the
+# knobs of the reference's incremental benchmark (BENCH_incremental.json)
+INCR_DESIGN, INCR_K, INCR_EPS, INCR_K_LOSS = "ibm08_like", 64, 0.08, 32
+INCR_DRIFT, INCR_STEPS = 0.15, 4
+# drifted weights are real-valued: the card adds the cut in f32, the host
+# in float64
+INCR_REL = 1e-5
+
+
+def sum_route_cost(hg, inc) -> None:
+    """What the fixed-order sums of drifted weights cost: one
+    ``refine_population`` of an incumbent population (alpha 4) on the
+    coarsest level of a hierarchy of ``hg`` (drifted) built around
+    ``inc``, timed with the level's real-weight flags (rating kernels
+    #3/#4) and with them cleared (``index_add_``, whose order of addition
+    varies between runs), in the order fixed, plain, plain, fixed."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import refine
+    from repro_torch.core.dcoarsen import build_hierarchy
+    from repro_torch.kernels import ops
+    hier = build_hierarchy(hg, INCR_K, seed=0, restrict_part=inc,
+                           device="cuda")
+    li = hier.num_levels - 1
+    real = hier.level_arrays(li)
+    plain = dataclasses.replace(real, real_edge_weights=False,
+                                real_vertex_weights=False)
+    part = torch.as_tensor(hier.level_part(li)).cpu().numpy()
+    parts = refine.pad_parts(np.stack([part] * 4), real.n_pad, "cuda")
+    walls = []
+    for lv in (real, plain, plain, real):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refine.refine_population(lv, parts.clone(), INCR_K, INCR_EPS,
+                                 max_iters=8, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    path = ops.gain_path(real.m_pad, INCR_K, real.incident)
+    layouts = [hier.level_arrays(i).incident is not None
+               for i in range(hier.num_levels)]
+    print(f"[incremental] hierarchy of a drifted step: sizes {hier.sizes()}, "
+          f"incidence layout per level {layouts}")
+    print(f"[incremental] refinement of the coarsest drifted level {li} "
+          f"(n={real.n}, LP gain path {path}, FM "
+          f"{'on' if real.n <= FM_NODE_LIMIT else 'off'}): wall_s "
+          f"fixed-order {walls[0]!r}, index_add_ {walls[1]!r}, index_add_ "
+          f"{walls[2]!r}, fixed-order {walls[3]!r} (real flags "
+          f"{real.real_edge_weights}; single runs)")
+
+
+def run_incremental_path(must_launch):
+    """Phase ``incremental``: incremental repartitioning on the card
+    (DESIGN.md §14), through ``incremental_partition`` and
+    ``repartition_k_change`` with one ``IncrementalState``.
+
+    (a) the incumbent: ``impart_partition`` at k 64, eps 0.08, alpha 4,
+    lp_iters 8, recombination, mutation and V-cycle off; (b) zero drift:
+    cold, then resident, bit-equal to a solve without state; (c) four
+    steps of ``drift_stream`` (magnitude 0.15), each warm with the
+    previous answer as its incumbent: replayed, with no round of the
+    device coarsener, beside a solve without state of the same step
+    (walls printed, not gated), and fed again through a second state
+    primed at zero drift, which must give the same parts and cuts bit
+    for bit; (d) a pin edit (patched) and the weight drift after it
+    (replayed); (e) a k-change to 32 (resident, the same budget, the
+    ``table`` gain kernel).  Every answer is balanced, within its budget,
+    no worse than its incumbent on its weights, and its cut agrees on
+    the host, in the result and on the card.  Returns the launches of
+    the solves and of their cut checks."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dcoarsen
+    from repro_torch.core.hypergraph import is_real_valued
+    from repro_torch.core.impart import ImpartConfig, impart_partition
+    from repro_torch.core.incremental import (IncrementalConfig,
+                                              IncrementalState,
+                                              incremental_partition,
+                                              repartition_k_change)
+    from repro_torch.data.hypergraphs import drift_stream, ispd_like
+    from repro_torch.kernels import ops
+    total = {}
+    rounds = [0]
+    real_round = dcoarsen._coarsen_round
+
+    def counted_round(*a, **kw):
+        rounds[0] += 1
+        return real_round(*a, **kw)
+
+    def solve(fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rounds[0] = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        _add_counts(total, counts)
+        return out, wall, counts, rounds[0]
+
+    def short(counts):
+        return {n: counts[n] for n in ("gain_table", "gain_stream",
+                                       "rating_segment_sum",
+                                       "rating_segment_sum_batch")}
+
+    def check(tag, hg_i, inc_i, res, k, budget):
+        cut, balanced, bw_max, cap = host_cut_and_balance(hg_i, res.part, k,
+                                                          INCR_EPS)
+        inc_cut = host_cut_and_balance(hg_i, inc_i, k, INCR_EPS)[0]
+        vw = hg_i.vertex_weights.astype(np.float64)
+        moved = float(vw[res.part != inc_i].sum())
+        _add_counts(total, card_cut_check(hg_i, res.part, k, cut, tag,
+                                          rel=INCR_REL))
+        print(f"[incremental] {tag}: {res.reused}, cut {res.cut!r} host cut "
+              f"{cut!r} incumbent cut {inc_cut!r}, migration {moved!r} of "
+              f"budget {res.budget_weight!r}, max block weight {bw_max!r} "
+              f"cap {cap!r}, levels {res.levels}")
+        if (not balanced or abs(cut - res.cut) > INCR_REL * cut
+                or res.cut > inc_cut * (1 + INCR_REL)
+                or moved > budget + 1e-3
+                or abs(moved - res.migration_weight) > 1e-3):
+            raise AssertionError(f"incremental {tag}: balanced={balanced}, "
+                                 f"cut {res.cut} host {cut} incumbent "
+                                 f"{inc_cut}, migration {moved} budget "
+                                 f"{budget}")
+
+    hg = ispd_like(INCR_DESIGN, 1.0)
+    cfg = IncrementalConfig(k=INCR_K, eps=INCR_EPS, alpha=4, lp_iters=8,
+                            migration_frac=0.15, seed=0)
+    budget = 0.15 * float(hg.vertex_weights.sum())
+    dcoarsen._coarsen_round = counted_round
+    try:
+        # (a) the incumbent
+        base, wall, counts, _ = solve(lambda: impart_partition(
+            hg, ImpartConfig(k=INCR_K, eps=INCR_EPS, alpha=4, lp_iters=8,
+                             recombination_enabled=False,
+                             mutation_enabled=False, final_vcycles=0),
+            device="cuda"))
+        inc = base.part.astype(np.int32)
+        cut, balanced = host_cut_and_balance(hg, inc, INCR_K, INCR_EPS)[:2]
+        _add_counts(total, card_cut_check(hg, inc, INCR_K, cut,
+                                          "incremental incumbent"))
+        print(f"[incremental] {INCR_DESIGN} n={hg.n} m={hg.m} "
+              f"pins={hg.num_pins} k={INCR_K}: incumbent wall_s {wall!r} "
+              f"cut {base.cut!r} host cut {cut!r}; launches {short(counts)}")
+        if cut != base.cut or not balanced:
+            raise AssertionError("incremental incumbent: host cut or balance")
+
+        # (b) zero drift: cold, resident, and a solve without state
+        st = IncrementalState()
+        out = {}
+        for tag, state in (("cold", st), ("resident", st), ("none", None)):
+            res, wall, counts, nr = solve(lambda: incremental_partition(
+                hg, inc, cfg, state=state, device="cuda"))
+            out[tag] = res
+            print(f"[incremental] zero drift {tag}: reused {res.reused}, "
+                  f"wall_s {wall!r}, coarsening rounds {nr}, launches "
+                  f"{short(counts)}")
+            check(f"zero drift {tag}", hg, inc, res, INCR_K, budget)
+        same = (np.array_equal(out["resident"].part, out["none"].part)
+                and out["resident"].cut == out["none"].cut
+                and out["resident"].migration_weight
+                == out["none"].migration_weight)
+        print(f"[incremental] zero drift resident == no state: {same}")
+        if ((out["cold"].reused, out["resident"].reused)
+                != ("cold", "resident") or not same):
+            raise AssertionError("incremental zero drift: classes or bits")
+
+        # (c) weight drift through the state, a second state beside it
+        stream = drift_stream(hg, INCR_STEPS, magnitude=INCR_DRIFT,
+                              tag="chip-incr")
+        # what deciding the sum routing costs: the host check a level
+        # made from host weights runs, and the same check of weights on
+        # the card (one reduction and one read per leaf)
+        t0 = time.perf_counter()
+        flags = (is_real_valued(stream[0].edge_weights),
+                 is_real_valued(stream[0].vertex_weights))
+        host_ms = (time.perf_counter() - t0) * 1e3
+        lv0 = hg.arrays(device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        is_real_valued(lv0.edge_weights)
+        is_real_valued(lv0.vertex_weights)
+        dev_ms = (time.perf_counter() - t0) * 1e3
+        print(f"[incremental] real-weight check of a drifted step (edge, "
+              f"vertex): {flags}; host numpy over its {hg.m} + {hg.n} "
+              f"weights {host_ms!r} ms, device check of level 0 "
+              f"{dev_ms!r} ms")
+        sum_route_cost(stream[0], inc)
+        prev, chain, warm_res = inc, [], []
+        for i, step in enumerate(stream):
+            res, wall, counts, nr = solve(lambda: incremental_partition(
+                step, prev, cfg, state=st, device="cuda"))
+            _, wall_cold, _, nr_cold = solve(lambda: incremental_partition(
+                step, prev, cfg, state=None, device="cuda"))
+            print(f"[incremental] drift step {i}: warm wall_s {wall!r} "
+                  f"(coarsening rounds {nr}), no-state wall_s "
+                  f"{wall_cold!r} (rounds {nr_cold}); warm launches "
+                  f"{short(counts)}")
+            check(f"drift step {i}", step, prev, res, INCR_K, budget)
+            if res.reused != "replayed" or nr:
+                raise AssertionError(f"drift step {i}: {res.reused}, {nr} "
+                                     "coarsening rounds")
+            chain.append(prev)
+            warm_res.append(res)
+            prev = res.part
+        st2 = IncrementalState()
+        solve(lambda: incremental_partition(hg, inc, cfg, state=st2,
+                                            device="cuda"))
+        for i, (step, inc_i) in enumerate(zip(stream, chain)):
+            again = solve(lambda: incremental_partition(
+                step, inc_i, cfg, state=st2, device="cuda"))[0]
+            same = (again.reused == "replayed"
+                    and np.array_equal(again.part, warm_res[i].part)
+                    and again.cut == warm_res[i].cut
+                    and np.array_equal(again.cuts, warm_res[i].cuts))
+            print(f"[incremental] drift step {i}, second state: "
+                  f"{again.reused}, cut {again.cut!r}; == first state "
+                  f"(parts, cut, member cuts): {same}")
+            if not same:
+                raise AssertionError(f"drift step {i}: the second state's "
+                                     "replay differs")
+
+        # (d) a pin edit, then weight drift on the edited structure
+        edited = drift_stream(stream[-1], 1, magnitude=0.1,
+                              pin_edit_frac=0.05, tag="chip-incr-edit")[0]
+        res, wall, counts, nr = solve(lambda: incremental_partition(
+            edited, prev, cfg, state=st, device="cuda"))
+        print(f"[incremental] pin edit: wall_s {wall!r}, coarsening rounds "
+              f"{nr}, launches {short(counts)}")
+        check("pin edit", edited, prev, res, INCR_K, budget)
+        after = drift_stream(edited, 1, magnitude=INCR_DRIFT,
+                             tag="chip-incr-after")[0]
+        res2, wall, counts, nr = solve(lambda: incremental_partition(
+            after, res.part, cfg, state=st, device="cuda"))
+        print(f"[incremental] drift after the edit: wall_s {wall!r}, "
+              f"coarsening rounds {nr}, launches {short(counts)}")
+        check("drift after the edit", after, res.part, res2, INCR_K, budget)
+        if (res.reused, res2.reused) != ("patched", "replayed") or nr:
+            raise AssertionError(f"pin edit: {res.reused}, then "
+                                 f"{res2.reused} with {nr} rounds")
+
+        # (e) device loss: k 64 -> 32 on the same state
+        inc_k = res2.part % INCR_K_LOSS
+        res3, wall, counts, nr = solve(lambda: repartition_k_change(
+            after, res2.part, INCR_K_LOSS, cfg, state=st, device="cuda"))
+        print(f"[incremental] k-change {INCR_K} -> {INCR_K_LOSS}: wall_s "
+              f"{wall!r}, coarsening rounds {nr}, launches {short(counts)}")
+        check("k-change", after, inc_k, res3, INCR_K_LOSS, budget)
+        if (res3.reused != "resident" or res3.budget_weight
+                != res2.budget_weight or not counts["gain_table"]):
+            raise AssertionError(f"k-change: {res3.reused}, budget "
+                                 f"{res3.budget_weight}, launches {counts}")
+    finally:
+        dcoarsen._coarsen_round = real_round
+    missing = [n for n in must_launch if total.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"incremental path: kernels never launched: "
+                             f"{missing}")
+    return total
+
+
 _COST_CHILD = """
 import json, sys, time
 import torch
@@ -2173,6 +2450,10 @@ def main() -> int:
                            ("rating_segment_sum_batch",)))
     if "instances" in phases:
         add(run_instances_path(("gain_table", "rating_segment_sum")))
+    if "incremental" in phases:
+        add(run_incremental_path(("gain_stream", "gain_table",
+                                  "rating_segment_sum",
+                                  "rating_segment_sum_batch")))
     if "--profile" in sys.argv[1:]:
         for design, k in (("ibm08_like", 64), ("ibm01_like", 16)):
             profile_main_path(design, k)

@@ -1,6 +1,7 @@
 """IMPart core of the port: data structures, metrics, refinement,
 coarsening, the memetic operators, the operator scheduler, the
-baselines and the driver (counterpart of ``repro.core``).  Unlike
+baselines, the driver and incremental repartitioning (counterpart of
+``repro.core``).  Unlike
 ``repro.core``, the package does not re-export the functions
 ``recombine`` and ``vcycle``, which would hide the modules of the same
 names."""
@@ -21,7 +22,10 @@ from .mutate import mutate_population, mutate_path, similarity_sets
 from .scheduler import (OperatorScheduler, SchedulerDecision,
                         SchedulerTrace, sched_path, resolve_sched)
 from .vcycle import vcycle_instances, vcycle_population
-from . import instances, metrics, refine, ilp
+from .incremental import (incremental_partition, repartition_k_change,
+                          IncrementalConfig, IncrementalResult,
+                          IncrementalState)
+from . import incremental, instances, metrics, refine, ilp
 
 __all__ = [
     "Hypergraph", "HypergraphArrays", "HierarchyArrays", "contract",
@@ -39,5 +43,7 @@ __all__ = [
     "mutate_population", "mutate_path", "similarity_sets",
     "OperatorScheduler", "SchedulerDecision", "SchedulerTrace",
     "sched_path", "resolve_sched", "vcycle_instances", "vcycle_population",
-    "instances", "metrics", "refine", "ilp",
+    "incremental_partition", "repartition_k_change", "IncrementalConfig",
+    "IncrementalResult", "IncrementalState",
+    "incremental", "instances", "metrics", "refine", "ilp",
 ]

@@ -309,6 +309,8 @@ def _rebucket(hga: HypergraphArrays, cid: torch.Tensor, part,
         edge_weights=hga.edge_weights[:m_pad2].contiguous(),
         edge_sizes=hga.edge_sizes[:m_pad2].contiguous(),
         n=hga.n, m=hga.m, incident=None,
+        real_edge_weights=hga.real_edge_weights,
+        real_vertex_weights=hga.real_vertex_weights,
     )
     cid = torch.where(cid >= hga.n, ghost_v, cid)
     part = None if part is None else part[:n_pad2].contiguous()

@@ -246,7 +246,19 @@ class HypergraphArrays:
     kernel path is reachable.  ``pin_sort`` caches the pins sorted by
     vertex (``metrics.pins_by_vertex``) and ``pin_sort_edge`` their edge
     ids in that order, built once per level for the fixed-order sums of
-    mutation's member rows.
+    real-valued weights.
+
+    ``real_edge_weights``/``real_vertex_weights`` say whether a weight
+    leaf holds a value that is not an integer (drifted weights,
+    DESIGN.md §14).  Integer-valued weights add exactly in any order;
+    real ones would reach float atomics on the card (``index_add_``,
+    ``scatter_add_``), whose order changes between runs, so the sums
+    over them take the rating kernel's fixed-order segment sum instead.
+    The flags are decided on the host when a level is made
+    (``from_numpy``: one pass over the weights; ``contract_arrays``: a
+    coarse level inherits its fine level's) or its weights are swapped
+    (``is_real_valued`` of the new weights), never inside a CUDA graph's
+    capture.
     """
 
     pin_vertex: torch.Tensor      # [P_pad] int32, padded -> n_pad - 1
@@ -261,6 +273,10 @@ class HypergraphArrays:
         dataclasses.field(default=None, repr=False, compare=False)
     pin_sort_edge: Optional[torch.Tensor] = \
         dataclasses.field(default=None, repr=False, compare=False)
+    real_edge_weights: bool = dataclasses.field(default=False,
+                                                compare=False)
+    real_vertex_weights: bool = dataclasses.field(default=False,
+                                                  compare=False)
 
     # -- derived sizes -------------------------------------------------------
     @property
@@ -342,8 +358,11 @@ class HypergraphArrays:
         inc = fields.get("incident")
         if inc is not None:
             inc = tensor(inc, torch.int32)
-        return HypergraphArrays(n=int(fields["n"]), m=int(fields["m"]),
-                                incident=inc, **kw)
+        return HypergraphArrays(
+            n=int(fields["n"]), m=int(fields["m"]), incident=inc,
+            real_edge_weights=is_real_valued(fields["edge_weights"]),
+            real_vertex_weights=is_real_valued(fields["vertex_weights"]),
+            **kw)
 
     def to_numpy(self) -> dict:
         """Every field as numpy (``incident`` None when absent)."""
@@ -352,6 +371,16 @@ class HypergraphArrays:
                    incident=(None if self.incident is None
                              else self.incident.cpu().numpy()))
         return out
+
+
+def is_real_valued(w) -> bool:
+    """Does the weight array ``w`` (numpy or a tensor) hold a value that
+    is not an integer?  A numpy array is checked on the host; a tensor
+    costs one reduction and one read back from its device."""
+    if torch.is_tensor(w):
+        return bool((w != torch.round(w)).any())
+    w = np.asarray(w)
+    return bool(np.any(w != np.rint(w)))
 
 
 # --------------------------------------------------------------------------
@@ -478,7 +507,11 @@ def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new,
     (edge, vertex) with ghosts compacted to the tail.
 
     Returns ``(coarse_arrays, p_new)``; ``coarse.n``/``coarse.m`` and
-    ``p_new`` are host ints, read back together in one transfer.
+    ``p_new`` are host ints, read back together in one transfer.  The
+    coarse level inherits the ``real_*_weights`` flags: on a level with
+    real-valued edge (vertex) weights the merged parallel-edge weights
+    (the cluster weights) are fixed-order sums, so two runs on the card
+    give the same bits; integer-valued weights keep ``index_add_``.
 
     ``ew_pop`` ([alpha, m_pad], optional) stacks per-member edge weights
     over the shared structure (the mutation cohort, DESIGN.md §10).  The
@@ -490,6 +523,7 @@ def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new,
     sums go through the rating kernel's fixed-order segment sum (the
     parallel-edge groups are sorted), so two runs give the same bits.
     """
+    from repro_torch.kernels import ops
     n_pad, m_pad, p_pad = hga.n_pad, hga.m_pad, hga.p_pad
     dev = hga.device
     ghost_v = n_pad - 1
@@ -497,8 +531,18 @@ def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new,
     arange_m = torch.arange(m_pad, device=dev)
     cid = cid.long()
 
-    new_vw = torch.zeros(n_pad, dtype=torch.float32, device=dev).index_add_(
-        0, cid, hga.vertex_weights)
+    if hga.real_vertex_weights:
+        # real-valued weights: a stable sort by cluster makes the sum a
+        # sorted-segment sum in fixed order (each cluster's members in
+        # vertex order, as ``index_add_`` adds them on the CPU)
+        vorder = torch.argsort(cid, stable=True)
+        new_vw = ops.rating_segment_sum(
+            hga.vertex_weights[vorder].contiguous(),
+            cid[vorder].to(torch.int32), n_pad)
+    else:
+        new_vw = torch.zeros(n_pad, dtype=torch.float32,
+                             device=dev).index_add_(0, cid,
+                                                    hga.vertex_weights)
 
     # sort pins by (edge, vertex): an int64 composite key is exact here
     # (the reference needs a two-key sort because it has no int64)
@@ -550,8 +594,13 @@ def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new,
     newg[1:] = (h1s[1:] != h1s[:-1]) | (h2s[1:] != h2s[:-1])
     grp = torch.cumsum(newg.to(torch.int64), 0) - 1
     alive_s = edge_alive[eo]
-    gw = torch.zeros(m_pad, dtype=torch.float32, device=dev).index_add_(
-        0, grp, torch.where(alive_s, hga.edge_weights[eo], 0.0))
+    w_s = torch.where(alive_s, hga.edge_weights[eo], 0.0)
+    if hga.real_edge_weights:
+        # ``grp`` ascends: the fixed-order sum of the sorted groups
+        gw = ops.rating_segment_sum(w_s, grp.to(torch.int32), m_pad)
+    else:
+        gw = torch.zeros(m_pad, dtype=torch.float32,
+                         device=dev).index_add_(0, grp, w_s)
     rep = torch.full((m_pad,), m_pad, dtype=torch.int64,
                      device=dev).scatter_reduce(
         0, grp, torch.where(alive_s, eo, m_pad), "amin")
@@ -584,6 +633,8 @@ def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new,
         vertex_weights=new_vw, edge_weights=new_ew,
         edge_sizes=new_es.to(torch.int32),
         n=n_h, m=m_h, incident=None,
+        real_edge_weights=hga.real_edge_weights,
+        real_vertex_weights=hga.real_vertex_weights,
     )
     if ew_pop is None:
         return coarse, p_h
@@ -595,7 +646,6 @@ def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new,
     # rating kernel adds each group in a fixed order, where ``index_add_``
     # would add the real-valued rows with atomics on the card (its plain
     # version on the CPU adds in ``index_add_``'s order)
-    from repro_torch.kernels import ops
     gw_r = ops.rating_segment_sum_batch(rows.contiguous(),
                                         grp.to(torch.int32), m_pad)
     merged_r = torch.where(keep_edge[None], gw_r[:, grp_of], 0.0)

@@ -43,9 +43,13 @@ improved or converged stays in the dispatch with ``live`` False, and
 since every row's trajectory depends on its own state alone, each
 instance gets the bits of ``refine.refine_population`` on it alone.
 
-Only the single-device ``off`` route exists in this slice; the mesh and
-chunk routes and incumbent entries (bounded migration, DESIGN.md §14)
-raise ``NotImplementedError`` naming the slice that brings them.
+Incumbent entries (bounded migration, DESIGN.md §14) carry an
+incumbent row and a migration budget per instance, broadcast to the
+instance's alpha rows; cold entries of a mixed stack ride with a zeros
+incumbent and an infinite budget, whose masks pass everything, so they
+keep their bits.  Only the single-device ``off`` route exists in this
+slice; the mesh and chunk routes raise ``NotImplementedError`` naming
+the slice that brings them.
 """
 from __future__ import annotations
 
@@ -111,7 +115,9 @@ def _repad(h: HypergraphArrays, n_pad: int, m_pad: int, p_pad: int
         edge_sizes=extend(h.edge_sizes, m_pad, 0),
         n=h.n, m=h.m,
         incident=None if h.incident is None else extend(h.incident, n_pad,
-                                                        -1))
+                                                        -1),
+        real_edge_weights=h.real_edge_weights,
+        real_vertex_weights=h.real_vertex_weights)
 
 
 @dataclasses.dataclass
@@ -121,7 +127,9 @@ class InstanceBatch:
     tensors and ``incident``, when every level has one, [I, n_pad, D]),
     so its shape properties do not apply: use ``n_pad``/``m_pad`` here,
     ``union()`` for the levels end to end, and ``rows(alpha)`` for the
-    row geometry the refinement tiers run on."""
+    row geometry the refinement tiers run on.  ``incumbent``/``mig_budget``
+    are None for a stack without incumbent entries (the program without
+    the bounded-migration branch)."""
     hga: HypergraphArrays
     k_pad: int                   # block-count bucket
     k_live: torch.Tensor         # [I] int32 true k of each instance
@@ -130,6 +138,8 @@ class InstanceBatch:
     ns: Tuple[int, ...]          # true vertex counts
     ks: Tuple[int, ...]          # true block counts
     orig_n_pads: Tuple[int, ...]  # natural paddings before bucketing
+    incumbent: Optional[torch.Tensor] = None   # [I, n_pad] int32
+    mig_budget: Optional[torch.Tensor] = None  # [I] f32 (inf: unbounded)
     _union: Optional[HypergraphArrays] = dataclasses.field(
         default=None, repr=False, compare=False)
 
@@ -169,7 +179,9 @@ class InstanceBatch:
                 vertex_weights=h.vertex_weights.reshape(-1),
                 edge_weights=h.edge_weights.reshape(-1),
                 edge_sizes=h.edge_sizes.reshape(-1),
-                n=num * self.n_pad, m=num * self.m_pad, incident=inc)
+                n=num * self.n_pad, m=num * self.m_pad, incident=inc,
+                real_edge_weights=h.real_edge_weights,
+                real_vertex_weights=h.real_vertex_weights)
         return self._union
 
     def rows(self, alpha: int) -> "_StackRows":
@@ -194,6 +206,10 @@ class _StackRows:
         self.cap = batch.cap.repeat(alpha)[:, None]               # [R, 1]
         self.k_live = batch.k_live.repeat(alpha)
         self.fm_steps = batch.fm_steps.repeat(alpha)
+        self.incumbent = self.mig_budget = None
+        if batch.incumbent is not None:
+            self.incumbent = batch.incumbent.repeat(alpha, 1)      # [R, n_pad]
+            self.mig_budget = batch.mig_budget.repeat(alpha)      # [R]
         self._pins = None
 
     @property
@@ -211,9 +227,8 @@ class _StackRows:
         return phi.reshape(parts.shape[0], self.m_pad, k)
 
     def block_weights(self, parts: torch.Tensor, k: int) -> torch.Tensor:
-        return torch.zeros((parts.shape[0], k), dtype=torch.float32,
-                           device=parts.device).scatter_add_(
-                               1, parts.long(), self.vertex_weights)
+        return metrics.block_weight_sums(parts, self.vertex_weights, k,
+                                         self.union.real_vertex_weights)
 
     def cuts(self, parts: torch.Tensor, k: int) -> torch.Tensor:
         """[R] f32: ``metrics.cutsize_population``'s sum, per row."""
@@ -234,6 +249,8 @@ class _StackRows:
         h = self.batch.hga
         self._pins = (h.pin_vertex.repeat(self.alpha, 1),
                       h.pin_edge.long().repeat(self.alpha, 1))
+        if self.union.real_edge_weights:
+            metrics.pins_by_vertex(self.union)
 
     def pin_delta(self, v: torch.Tensor) -> torch.Tensor:
         """[R, m_pad] int32: the pins of vertex ``v[r]`` of row r's
@@ -251,13 +268,14 @@ def stack_instances(hgas: Sequence[HypergraphArrays], ks: Sequence[int],
                     mig_budgets: Optional[Sequence] = None) -> InstanceBatch:
     """Stack independent levels (all on one device) into one bucket
     batch: the targets are the group's per-axis maxima (``grid`` rounds
-    the vertex axis), each level re-padded inertly first."""
+    the vertex axis), each level re-padded inertly first.
+
+    ``incumbents``/``mig_budgets`` (optional, DESIGN.md §14): each
+    instance's incumbent assignment [n_i] and migration budget; a None
+    incumbent (a cold instance in the stack) rides with zeros and an
+    infinite budget, a None budget is infinite."""
     if not (len(hgas) == len(ks) == len(epss)):
         raise ValueError("hgas/ks/epss length mismatch")
-    if any(x is not None for x in (incumbents or ())) or any(
-            x is not None for x in (mig_budgets or ())):
-        refine_mod._later_slice("incumbents / mig_budgets",
-                                "incremental repartitioning")
     dev = hgas[0].device
     if any(h.device != dev for h in hgas):
         raise ValueError("instances of one stack must share a device")
@@ -284,14 +302,30 @@ def stack_instances(hgas: Sequence[HypergraphArrays], ks: Sequence[int],
                      "edge_weights", "edge_sizes")},
         n=torch.tensor([int(h.n) for h in hgas], device=dev),
         m=torch.tensor([int(h.m) for h in hgas], device=dev),
-        incident=incident)
+        incident=incident,
+        real_edge_weights=any(h.real_edge_weights for h in hgas),
+        real_vertex_weights=any(h.real_vertex_weights for h in hgas))
+    inc = mb = None
+    if incumbents is not None and any(x is not None for x in incumbents):
+        inc_rows = np.zeros((len(hgas), n_pad), np.int32)
+        mb_rows = np.full(len(hgas), np.inf, np.float32)
+        for i, x in enumerate(incumbents):
+            if x is None:
+                continue
+            x = np.asarray(torch.as_tensor(x).cpu(), np.int32)
+            inc_rows[i, : x.shape[0]] = x
+            b = None if mig_budgets is None else mig_budgets[i]
+            mb_rows[i] = np.inf if b is None else float(b)
+        inc = torch.from_numpy(inc_rows).to(dev)
+        mb = torch.from_numpy(mb_rows).to(dev)
     return InstanceBatch(
         hga=stacked, k_pad=k_pad,
         k_live=torch.tensor([int(k) for k in ks], dtype=torch.int32,
                             device=dev),
         cap=cap, fm_steps=fm_steps,
         ns=tuple(int(h.n) for h in hgas), ks=tuple(int(k) for k in ks),
-        orig_n_pads=tuple(h.n_pad for h in hgas))
+        orig_n_pads=tuple(h.n_pad for h in hgas),
+        incumbent=inc, mig_budget=mb)
 
 
 def stack_parts(parts_list: Sequence, n_pad: int,
@@ -314,13 +348,17 @@ def _take_i(batch: InstanceBatch, idx) -> InstanceBatch:
         pin_vertex=h.pin_vertex[j], pin_edge=h.pin_edge[j],
         vertex_weights=h.vertex_weights[j], edge_weights=h.edge_weights[j],
         edge_sizes=h.edge_sizes[j], n=h.n[j], m=h.m[j],
-        incident=None if h.incident is None else h.incident[j])
+        incident=None if h.incident is None else h.incident[j],
+        real_edge_weights=h.real_edge_weights,
+        real_vertex_weights=h.real_vertex_weights)
     return InstanceBatch(
         hga=sub, k_pad=batch.k_pad, k_live=batch.k_live[j],
         cap=batch.cap[j], fm_steps=batch.fm_steps[j],
         ns=tuple(batch.ns[i] for i in idx),
         ks=tuple(batch.ks[i] for i in idx),
-        orig_n_pads=tuple(batch.orig_n_pads[i] for i in idx))
+        orig_n_pads=tuple(batch.orig_n_pads[i] for i in idx),
+        incumbent=None if batch.incumbent is None else batch.incumbent[j],
+        mig_budget=None if batch.mig_budget is None else batch.mig_budget[j])
 
 
 def _cutsize_instances(batch: InstanceBatch, parts) -> torch.Tensor:
@@ -375,7 +413,8 @@ def lp_refine_instances(batch: InstanceBatch, parts, max_iters: int = 24,
             rows, cuts, improved, fracs, used = \
                 refine_mod._lp_attempt_population_impl(
                     lv, rows, cuts, fracs, remaining, k, lv.cap,
-                    live=live, k_live=lv.k_live)
+                    live=live, k_live=lv.k_live, incumbent=lv.incumbent,
+                    mig_budget=lv.mig_budget)
             improved = improved.cpu().numpy()
             improved_round |= improved
             remaining -= used
@@ -408,7 +447,8 @@ def fm_refine_instances(batch: InstanceBatch, parts,
             break
         cands, cs = refine_mod._fm_pass_population_impl(
             lv, rows, k, lv.cap, lv.fm_steps, k_live=lv.k_live,
-            live=torch.as_tensor(~done, device=dev))
+            live=torch.as_tensor(~done, device=dev), incumbent=lv.incumbent,
+            mig_budget=lv.mig_budget)
         cs = cs.cpu().numpy().astype(np.float64)
         take = (cs < cuts - 1e-6) & ~done
         rows = torch.where(torch.as_tensor(take, device=dev)[:, None],
@@ -478,6 +518,13 @@ def dispatch_groups(entries, grid: Optional[Sequence[int]] = None
     return out
 
 
+def _entry_migration(entry) -> tuple:
+    """``(incumbent, mig_budget)`` of a ``refine_grouped`` entry, both
+    None for a 4-tuple."""
+    return (entry[4] if len(entry) > 4 else None,
+            entry[5] if len(entry) > 5 else None)
+
+
 def refine_grouped(entries, grid: Optional[Sequence[int]] = None,
                    fm_node_limit: int = 4096, max_iters: int = 24,
                    patience: int = 3, shard: Optional[str] = None,
@@ -487,18 +534,17 @@ def refine_grouped(entries, grid: Optional[Sequence[int]] = None,
     """Refine a heterogeneous set of instances by bucketed stacks on
     ``device``, where every entry's level must live.
 
-    ``entries``: ``(hga, parts [A, n_pad_i], k, eps)`` tuples; the
-    incumbent entries of bounded migration (6-tuples) come with a later
-    slice.  Returns per-entry ``(parts [A, n_pad_i] int32 on the device,
-    cuts [A] float64)`` in input order, each bit-equal to
-    ``refine.refine_population`` on that entry alone, which is what a
-    stack of one entry runs.  This is the dispatch unit the V-cycle
-    drivers and the partition service share.
+    ``entries``: ``(hga, parts [A, n_pad_i], k, eps)`` tuples, or
+    ``(hga, parts, k, eps, incumbent, mig_budget)`` for incremental
+    entries (DESIGN.md §14): an incumbent assignment [n_i] and a
+    moved-weight budget.  Both kinds share a stack.  Returns per-entry
+    ``(parts [A, n_pad_i] int32 on the device, cuts [A] float64)`` in
+    input order, each bit-equal to ``refine.refine_population`` on that
+    entry alone (with its incumbent and budget), which is what a stack of
+    one entry runs.  This is the dispatch unit the V-cycle drivers and
+    the partition service share.
     """
     refine_mod._check_slice_options(shard=shard, model_shard=model_shard)
-    if any(len(e) > 4 for e in entries):
-        refine_mod._later_slice("incumbent entries (incumbent, mig_budget)",
-                                "incremental repartitioning")
     dev = resolve_device(device)
     for e in entries:
         if e[0].device.type != dev.type:
@@ -509,15 +555,21 @@ def refine_grouped(entries, grid: Optional[Sequence[int]] = None,
         if len(idx) == 1:
             # a stack of one is the solo level: refine it unpadded, with
             # the population tiers' compaction of finished members
-            hga, parts, k, eps = entries[idx[0]]
+            hga, parts, k, eps = entries[idx[0]][:4]
+            inc, mb = _entry_migration(entries[idx[0]])
             out[idx[0]] = refine_mod.refine_population(
                 hga, parts, k, eps, fm_node_limit=fm_node_limit,
                 max_iters=max_iters, patience=patience, shard=shard,
-                model_shard=model_shard, device=dev)
+                incumbent=inc, mig_budget=mb, model_shard=model_shard,
+                device=dev)
             continue
+        incs, mbs = zip(*(_entry_migration(entries[i]) for i in idx))
+        if all(x is None for x in incs):
+            incs = mbs = None
         batch = stack_instances([entries[i][0] for i in idx],
                                 [entries[i][2] for i in idx],
-                                [entries[i][3] for i in idx], grid=grid)
+                                [entries[i][3] for i in idx], grid=grid,
+                                incumbents=incs, mig_budgets=mbs)
         parts = stack_parts([entries[i][1] for i in idx], batch.n_pad,
                             batch.device)
         rp, rc = refine_instances(batch, parts,

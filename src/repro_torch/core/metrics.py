@@ -8,19 +8,23 @@ block id and zero weight, ghost pins point at the zero-weight ghost
 edge.  Flat indices are int64: the reference's int32 ``edge * k + part``
 overflows once ``m_pad * k`` or ``n_pad * k`` passes 2**31.
 
-Edge and vertex weights are integer-valued f32 on every instance the
-engines ingest, so Phi, lambda, cuts, block weights and gains are exact
-sums in any order: the population functions here are bit-equal to the
-reference's vmapped ones, whatever path assembles the gains.  The one
-exception is mutation's per-member reweighting (``ew_pop``, DESIGN.md
-§10): its weights ``w_e * (1 + mu * C(e))`` are not integers, so
-weighted cuts and gains hold to the reference within rounding.  On the
-card ``index_add_`` would add those with atomics, in an order that
-changes between runs; so they are summed in a fixed order instead, the
-rating kernel's sorted-segment sum over the pins sorted by vertex
-(``pins_by_vertex``), and two runs give the same bits.  On the CPU that
-sum's plain version adds each vertex's pins in pin order, as
-``index_add_`` did there, so the CPU's bits are those of ``index_add_``.
+Edge and vertex weights are integer-valued f32 on the instances the
+engines ingest from the generators, so Phi, lambda, cuts, block weights
+and gains are exact sums in any order: the population functions here
+are bit-equal to the reference's vmapped ones, whatever path assembles
+the gains.  Two kinds of weights are not integers: mutation's
+per-member reweighting (``ew_pop``, DESIGN.md §10), ``w_e * (1 + mu *
+C(e))``, and the drifted weights of incremental repartitioning
+(DESIGN.md §14), which a level flags as ``real_edge_weights`` /
+``real_vertex_weights``.  On the card ``index_add_`` and
+``scatter_add_`` would add those with atomics, in an order that changes
+between runs; so they are summed in a fixed order instead, the rating
+kernel's sorted-segment sum (the gains over the pins sorted by vertex,
+``pins_by_vertex``; block weights over the vertices sorted by block),
+and two runs give the same bits.  On the CPU that sum's plain version
+adds each segment in the original order, as ``index_add_`` did there,
+so the CPU's bits are those of ``index_add_``.  Integer-valued levels
+keep ``index_add_``.
 """
 from __future__ import annotations
 
@@ -48,9 +52,30 @@ def block_weights(hga: HypergraphArrays, part: torch.Tensor,
 def block_weights_population(hga: HypergraphArrays, parts: torch.Tensor,
                              k: int) -> torch.Tensor:
     """[alpha, k] total vertex weight per block of every member."""
-    vw = hga.vertex_weights.expand(parts.shape[0], -1)
-    return torch.zeros((parts.shape[0], k), dtype=torch.float32,
-                       device=parts.device).scatter_add_(1, parts.long(), vw)
+    return block_weight_sums(parts, hga.vertex_weights, k,
+                             hga.real_vertex_weights)
+
+
+def block_weight_sums(parts: torch.Tensor, vertex_weights: torch.Tensor,
+                      k: int, fixed_order: bool = False) -> torch.Tensor:
+    """[R, k] sums of ``vertex_weights`` ([n_pad], or one row per row of
+    ``parts`` [R, n_pad]) per block.  ``fixed_order`` (real-valued
+    weights) sorts the (row, block) keys stably and sums them with the
+    rating kernel, in vertex order per block, instead of
+    ``scatter_add_``."""
+    rows = parts.shape[0]
+    vw = vertex_weights.expand(rows, -1)
+    if not fixed_order:
+        return torch.zeros((rows, k), dtype=torch.float32,
+                           device=parts.device).scatter_add_(
+                               1, parts.long(), vw)
+    from repro_torch.kernels import ops
+    key = (torch.arange(rows, device=parts.device)[:, None] * k
+           + parts.long()).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    return ops.rating_segment_sum(
+        vw.reshape(-1)[order].contiguous(), key[order].to(torch.int32),
+        rows * k).reshape(rows, k)
 
 
 def pins_in_block_population(hga: HypergraphArrays, parts: torch.Tensor,
@@ -224,11 +249,11 @@ def _gain_segsum(hga: HypergraphArrays, phi: torch.Tensor,
     becomes_internal, was_internal = _edge_gain_terms(hga, phi, ew_pop)
     pe, pv = hga.pin_edge.long(), hga.pin_vertex.long()
     alpha, _, k = phi.shape
-    if ew_pop is not None:
-        # real-valued member rows: (member, column) rows of
-        # becomes_internal, then the members' was_internal rows, gathered
-        # with the pins sorted by vertex into one buffer and summed per
-        # vertex in one fixed-order launch
+    if ew_pop is not None or hga.real_edge_weights:
+        # real-valued weights (member rows or a drifted level): the
+        # (member, column) rows of becomes_internal, then the members'
+        # was_internal rows, gathered with the pins sorted by vertex into
+        # one buffer and summed per vertex in one fixed-order launch
         pe_v = sorted_pin_edges(hga)
         rows = torch.empty((alpha * (k + 1), pe_v.numel()),
                            dtype=torch.float32, device=phi.device)
@@ -275,8 +300,8 @@ def _gain_compact(hga: HypergraphArrays, phi: torch.Tensor, k: int,
     wp = w[:, pe].reshape(-1)
     size = alpha * hga.n_pad * (k + 1)
     s1, s2 = (rows + c1[:, pe]).reshape(-1), (rows + c2[:, pe]).reshape(-1)
-    if ew_pop is not None:
-        # real-valued member rows: a stable sort of the (member, vertex,
+    if ew_pop is not None or hga.real_edge_weights:
+        # real-valued weights: a stable sort of the (member, vertex,
         # column) slots makes the scatter a sorted-segment sum in a fixed
         # order
         from repro_torch.kernels import ops

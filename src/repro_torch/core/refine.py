@@ -20,8 +20,12 @@ gives every member its own edge-weight row over the shared structure
 (the mutation cohort, DESIGN.md §10).  Both tiers also refine a stack of
 independent instances as rows of one population (``core.instances``,
 DESIGN.md §12), with each row's missing blocks, frozen state and FM step
-budget given as masks.  Options of later slices (mesh sharding, bounded
-migration) raise ``NotImplementedError``.
+budget given as masks.  ``incumbent`` + ``mig_budget`` bound every
+member's moved vertex weight relative to an incumbent assignment through
+both tiers (incremental repartitioning, DESIGN.md §14); an infinite
+budget (``mig_budget=None``) gives the bits of a call without them.
+Mesh sharding belongs to a later slice and raises
+``NotImplementedError``.
 
 The scalar entry points (``lp_round``, ``lp_refine``, ``fm_refine``,
 ``refine``) refine one partition; the baselines and recombination's
@@ -37,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.env import resolve_device
-from .hypergraph import HypergraphArrays
+from .hypergraph import HypergraphArrays, is_real_valued
 from . import metrics
 
 NEG = -1e30
@@ -55,14 +59,30 @@ def _later_slice(what: str, slice_name: str):
         f"{what} belongs to a later slice of the port ({slice_name})")
 
 
-def _check_slice_options(shard=None, incumbent=None, mig_budget=None,
-                         model_shard=None) -> None:
+def _check_slice_options(shard=None, model_shard=None) -> None:
     if shard not in (None, "off", "auto"):
         _later_slice(f"shard={shard!r}", "multi-device paths")
     if model_shard not in (None, "off", "auto"):
         _later_slice(f"model_shard={model_shard!r}", "multi-device paths")
-    if incumbent is not None or mig_budget is not None:
-        _later_slice("incumbent / mig_budget", "incremental repartitioning")
+
+
+def _migration_args(incumbent, mig_budget, n_pad: int, device):
+    """The incumbent [n_pad] int32 and the budget (an f32 scalar, inf
+    for None) on ``device``, or ``(None, None)`` without an incumbent.
+    The budget is rounded to f32 as the reference's traced scalar is."""
+    if incumbent is None:
+        return None, None
+    inc = pad_part(incumbent, n_pad, device)
+    mb = torch.tensor(np.inf if mig_budget is None else float(mig_budget),
+                      dtype=torch.float32, device=device)
+    return inc, mb
+
+
+def _moved_weight(lv, parts: torch.Tensor,
+                  incumbent: torch.Tensor) -> torch.Tensor:
+    """[R] f32 weight of the vertices of each row that sit outside their
+    incumbent block."""
+    return torch.where(parts != incumbent, lv.vertex_weights, 0.0).sum(-1)
 
 
 def pad_part(part, n_pad: int, device=None) -> torch.Tensor:
@@ -97,7 +117,9 @@ def pad_parts(parts, n_pad: int, device=None) -> torch.Tensor:
 def accept_moves(part: torch.Tensor, target: torch.Tensor,
                  gain: torch.Tensor, propose: torch.Tensor,
                  vertex_weights: torch.Tensor, bw: torch.Tensor,
-                 cap: torch.Tensor, frac: torch.Tensor, k: int
+                 cap: torch.Tensor, frac: torch.Tensor, k: int,
+                 incumbent: torch.Tensor | None = None,
+                 mig_remaining: torch.Tensor | None = None
                  ) -> torch.Tensor:
     """Balanced parallel-move acceptance for every member at once
     (``part``/``target``/``gain``/``propose`` [alpha, n_pad], ``bw``
@@ -108,6 +130,14 @@ def accept_moves(part: torch.Tensor, target: torch.Tensor,
     capacity is enforced with a prefix sum over the sorted proposal
     weights.  ``vertex_weights`` is [n_pad] or one row per member, and
     ``cap`` a scalar or [alpha, 1] (a stack of instances, DESIGN.md §12).
+
+    ``incumbent`` ([n_pad], or one row per member) and ``mig_remaining``
+    [alpha] add bounded migration (DESIGN.md §14): a second prefix sum
+    over the sorted order adds up the positive migration deltas of the
+    kept proposals, and a proposal that raises migration is accepted
+    only while that sum stays within the row's remaining budget;
+    proposals that lower it always pass.  An infinite budget passes
+    every proposal, so the trajectory is the one without the branch.
     """
     alpha, n_pad = part.shape
     order = torch.argsort(torch.where(propose, -gain, -NEG), dim=1,
@@ -133,6 +163,16 @@ def accept_moves(part: torch.Tensor, target: torch.Tensor,
     fit_own = torch.gather(fits_sorted, 1,
                            tgt_sorted.clamp(max=k - 1)[:, None, :])[:, 0]
     accept_sorted = fit_own & (tgt_sorted < k)
+    if incumbent is not None:
+        moved_now = (part != incumbent).to(torch.float32)
+        moved_tgt = (target != incumbent).to(torch.float32)
+        delta = vertex_weights * (moved_tgt - moved_now)
+        delta_sorted = torch.gather(torch.where(propose, delta, 0.0), 1,
+                                    order)
+        pos_pref = torch.cumsum(torch.clamp(delta_sorted, min=0.0), dim=1)
+        mig_ok = ((delta_sorted <= 0.0)
+                  | (pos_pref <= mig_remaining[:, None] + 1e-6))
+        accept_sorted = accept_sorted & mig_ok
     accept = torch.zeros_like(propose).scatter_(1, order, accept_sorted)
     return torch.where(accept, target, part)
 
@@ -182,9 +222,9 @@ class _Level:
         it."""
         h = self.hga
         self._pins = (h.pin_vertex.long(), h.pin_edge.long())
-        if self.ew_pop is not None:
-            # the fixed-order gain sums of member rows read the level's
-            # pins sorted by vertex
+        if self.ew_pop is not None or h.real_edge_weights:
+            # the fixed-order gain sums of real-valued weights read the
+            # level's pins sorted by vertex
             metrics.pins_by_vertex(h)
 
     def pin_delta(self, v: torch.Tensor) -> torch.Tensor:
@@ -218,20 +258,28 @@ def _mask_blocks(x: torch.Tensor, k_live: torch.Tensor | None
 def _lp_round_from_gains(lv, parts: torch.Tensor, k: int,
                          cap: torch.Tensor, fracs: torch.Tensor,
                          gains: torch.Tensor,
-                         k_live: torch.Tensor | None = None
+                         k_live: torch.Tensor | None = None,
+                         incumbent: torch.Tensor | None = None,
+                         mig_budget: torch.Tensor | None = None
                          ) -> torch.Tensor:
     """Proposal + balanced acceptance given the population gain tensor
     [R, n_pad, k] of the rows of ``lv``: every vertex proposes its best
     block (first maximum), positive gains only.  ``k_live`` [R] masks the
-    blocks a row's instance does not have."""
+    blocks a row's instance does not have.  With ``incumbent`` a row's
+    remaining migration budget is ``mig_budget`` (a scalar or [R]) less
+    the weight it has already moved."""
     own = parts.long()[..., None] == torch.arange(k, device=parts.device)
     gains = _mask_blocks(torch.where(own, NEG, gains), k_live)
     best_j = torch.argmax(gains, dim=-1)
     best_g = torch.gather(gains, 2, best_j[..., None])[..., 0]
     propose = lv.valid & (best_g > 1e-9)
     bw = lv.block_weights(parts, k)
+    mig_remaining = None
+    if incumbent is not None:
+        mig_remaining = mig_budget - _moved_weight(lv, parts, incumbent)
     return accept_moves(parts, best_j.to(torch.int32), best_g, propose,
-                        lv.vertex_weights, bw, cap, fracs, k)
+                        lv.vertex_weights, bw, cap, fracs, k,
+                        incumbent=incumbent, mig_remaining=mig_remaining)
 
 
 def _with_weights(hga: HypergraphArrays,
@@ -239,18 +287,23 @@ def _with_weights(hga: HypergraphArrays,
                   ) -> HypergraphArrays:
     if edge_weight_override is None:
         return hga
-    return dataclasses.replace(hga, edge_weights=edge_weight_override)
+    return dataclasses.replace(
+        hga, edge_weights=edge_weight_override,
+        real_edge_weights=is_real_valued(edge_weight_override))
 
 
 def _lp_round_population_impl(lv, parts: torch.Tensor, k: int,
                               cap: torch.Tensor, fracs: torch.Tensor,
-                              k_live: torch.Tensor | None = None
+                              k_live: torch.Tensor | None = None,
+                              incumbent: torch.Tensor | None = None,
+                              mig_budget: torch.Tensor | None = None
                               ) -> torch.Tensor:
     """One LP round for all rows of ``lv``: the gains of the whole
     population come from one dispatch (one kernel launch on the kernel
     paths)."""
     return _lp_round_from_gains(lv, parts, k, cap, fracs,
-                                lv.gains(parts, k), k_live)
+                                lv.gains(parts, k), k_live, incumbent,
+                                mig_budget)
 
 
 def lp_round_population(hga: HypergraphArrays, parts, k: int,
@@ -271,20 +324,25 @@ def _lp_attempt_population_impl(lv, parts: torch.Tensor,
                                 cuts: torch.Tensor, fracs: torch.Tensor,
                                 attempts: int, k: int, cap: torch.Tensor,
                                 live: torch.Tensor | None = None,
-                                k_live: torch.Tensor | None = None):
+                                k_live: torch.Tensor | None = None,
+                                incumbent: torch.Tensor | None = None,
+                                mig_budget: torch.Tensor | None = None):
     """The LP attempt loop: per row, propose a round at the current
     acceptance fraction, measure the cut (on the true weights, or on the
     member's own row of ``ew_pop``), accept on improvement, otherwise
     quarter the fraction and retry.  Returns as soon as any row improved
     (the caller resumes the others), reading back one flag per attempt.
-    A row with ``live`` False never accepts and never raises that flag.
-    Returns ``(parts, cuts, improved, fracs, used)``.
+    A row with ``live`` False never accepts and never raises that flag;
+    ``incumbent``/``mig_budget`` bound each row's migration
+    (``_lp_round_from_gains``).  Returns ``(parts, cuts, improved, fracs,
+    used)``.
     """
     improved = torch.zeros(parts.shape[0], dtype=torch.bool,
                            device=parts.device)
     used = 0
     while used < attempts:
-        cands = _lp_round_population_impl(lv, parts, k, cap, fracs, k_live)
+        cands = _lp_round_population_impl(lv, parts, k, cap, fracs, k_live,
+                                          incumbent, mig_budget)
         cs = lv.cuts(cands, k)
         take = cs < cuts - 1e-6
         if live is not None:
@@ -372,12 +430,15 @@ def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
     follows exactly the trajectory the reference gives it.
     ``edge_weights_pop`` [alpha, m_pad]: each member's gains and
     acceptance cuts use its own row, as if it refined its own reweighted
-    hypergraph.  Returns (parts [alpha, n_pad] int32 on hga's device,
-    cuts [alpha] float64)."""
-    _check_slice_options(shard, incumbent, mig_budget, model_shard)
+    hypergraph.  ``incumbent`` [n] + ``mig_budget``: every member's moved
+    weight relative to the incumbent stays within the budget (None is
+    an infinite budget).  Returns (parts [alpha, n_pad] int32 on hga's
+    device, cuts [alpha] float64)."""
+    _check_slice_options(shard, model_shard)
     dev = hga.device
     cap = _cap_for(hga, k, eps)
     parts = pad_parts(parts, hga.n_pad, dev)
+    inc, mb = _migration_args(incumbent, mig_budget, hga.n_pad, dev)
     alpha = parts.shape[0]
     ewo = (None if edge_weight_override is None else torch.as_tensor(
         edge_weight_override, dtype=torch.float32, device=dev))
@@ -408,7 +469,7 @@ def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
                     torch.as_tensor(cuts[idx], dtype=torch.float32,
                                     device=dev),
                     torch.as_tensor(fracs[idx], device=dev),
-                    remaining, k, cap)
+                    remaining, k, cap, incumbent=inc, mig_budget=mb)
             improved = improved.cpu().numpy()
             if len(idx) < alpha:
                 parts[idx_t] = new_sub
@@ -433,7 +494,9 @@ def _fm_pass_population_impl(hga, parts: torch.Tensor, k: int,
                              cap: torch.Tensor, steps,
                              edge_weights_pop: torch.Tensor | None = None,
                              k_live: torch.Tensor | None = None,
-                             live: torch.Tensor | None = None
+                             live: torch.Tensor | None = None,
+                             incumbent: torch.Tensor | None = None,
+                             mig_budget: torch.Tensor | None = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One FM pass for every row: up to ``steps`` single moves
     (negative gains allowed), returning each row's best prefix
@@ -447,6 +510,12 @@ def _fm_pass_population_impl(hga, parts: torch.Tensor, k: int,
     a row with ``live`` False never moves; ``steps`` given as an [R]
     tensor is each row's own budget, counted by a step index on the
     device, so the pass runs the largest and a row freezes at its own.
+
+    ``incumbent`` ([n_pad], or [R, n_pad]) + ``mig_budget`` (a scalar or
+    [R] f32 tensor): the weight a row has moved away from the incumbent
+    is one more entry of the step state, and a move whose migration
+    delta would take it past the budget is masked to NEG like a balance
+    violation, so every prefix, and the best one, stays within budget.
 
     A row stops once no feasible move exists (every vertex locked or
     infeasible); from then on its state is frozen, so the loop runs
@@ -473,10 +542,22 @@ def _fm_pass_population_impl(hga, parts: torch.Tensor, k: int,
     if feasible_slack.dim():
         feasible_slack = feasible_slack.reshape(-1, 1, 1)
     budget = steps if torch.is_tensor(steps) else None
+    if incumbent is not None:
+        inc = incumbent.long().expand(alpha, n_pad)
+        # a move to block j migrates v iff j differs from its incumbent
+        # block; the budget's slack is added once, outside the graph
+        mig_tgt = (blocks != inc[..., None]).to(torch.float32)  # [R, n, k]
+        mig_slack = mig_budget + 1e-6
+        if mig_slack.dim():
+            mig_slack = mig_slack.reshape(-1, 1, 1)
     lv.prepare_fm()  # never inside the graph's capture
 
     def step(state):
         part, phi, bw, locked, cur_cut, best_cut, best_part = state[:7]
+        extra = 7
+        if budget is not None:
+            t = state[extra]
+            extra += 1
         # FM pins the segsum path: it only runs on coarse levels, whose
         # small pin counts make the [alpha, P, k] segment-sum cheaper per
         # move step than the compact path's fixed extract/scatter overhead
@@ -485,6 +566,12 @@ def _fm_pass_population_impl(hga, parts: torch.Tensor, k: int,
         feasible = (bw[:, None, :] + vw[..., None]) <= feasible_slack
         score = _mask_blocks(torch.where(own | ~feasible, NEG, gains),
                              k_live)
+        if incumbent is not None:
+            mig_w = state[extra]
+            moved_cur = (part != inc).to(torch.float32)
+            delta_mig = vw[..., None] * (mig_tgt - moved_cur[..., None])
+            score = torch.where(mig_w[:, None, None] + delta_mig
+                                > mig_slack, NEG, score)
         score = torch.where((locked | ~valid)[..., None], NEG, score)
         flat = torch.argmax(score.reshape(alpha, -1), dim=1)
         v = flat // k
@@ -493,10 +580,13 @@ def _fm_pass_population_impl(hga, parts: torch.Tensor, k: int,
         do = g > NEG / 2  # any feasible move at all?
         if live is not None:
             do = do & live
-        count = ()
+        carried = ()
         if budget is not None:
-            do = do & (state[7] < budget)
-            count = (state[7] + 1,)
+            do = do & (t < budget)
+            carried = (t + 1,)
+        if incumbent is not None:
+            carried += (torch.where(do, mig_w + delta_mig[rows, v, j],
+                                    mig_w),)
 
         b = part[rows, v].long()
         d = lv.pin_delta(v)                                      # [a, m_pad]
@@ -514,11 +604,14 @@ def _fm_pass_population_impl(hga, parts: torch.Tensor, k: int,
         best_cut = torch.where(better, cur_cut, best_cut)
         best_part = torch.where(better[:, None], part, best_part)
         return ((part, phi, bw, locked, cur_cut, best_cut, best_part)
-                + count + (do,))
+                + carried + (do,))
 
     state = (part, phi, bw, locked, cur_cut, cur_cut.clone(), part.clone())
     if budget is not None:
         state += (torch.zeros((), dtype=torch.int32, device=dev),)
+    if incumbent is not None:
+        state += (_moved_weight(lv, part, incumbent),)
+    # the "moved" flag stays last: ``_run_fm_steps`` reads ``state[-1]``
     state += (torch.ones(alpha, dtype=torch.bool, device=dev),)
     n_steps = int(budget.max()) if budget is not None else steps
     state = _run_fm_steps(step, state, n_steps)
@@ -631,11 +724,14 @@ def fm_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
                          ) -> Tuple[torch.Tensor, np.ndarray]:
     """Batched FM with per-member pass acceptance: a member stops
     improving exactly when the scalar loop would have broken.
-    Returns (parts [alpha, n_pad], cuts [alpha] float64)."""
-    _check_slice_options(shard, incumbent, mig_budget, model_shard)
+    ``incumbent`` [n] + ``mig_budget`` bound migration move by move
+    inside every pass.  Returns (parts [alpha, n_pad], cuts [alpha]
+    float64)."""
+    _check_slice_options(shard, model_shard)
     dev = hga.device
     cap = _cap_for(hga, k, eps)
     parts = pad_parts(parts, hga.n_pad, dev)
+    inc, mb = _migration_args(incumbent, mig_budget, hga.n_pad, dev)
     alpha = parts.shape[0]
     ew_pop = (None if edge_weights_pop is None else torch.as_tensor(
         edge_weights_pop, dtype=torch.float32, device=dev))
@@ -650,7 +746,8 @@ def fm_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
         idx_t = torch.as_tensor(idx, device=dev)
         cands, cs = _fm_pass_population_impl(
             hga, parts[idx_t], k, cap, steps,
-            None if ew_pop is None else ew_pop[idx_t])
+            None if ew_pop is None else ew_pop[idx_t],
+            incumbent=inc, mig_budget=mb)
         cs = cs.cpu().numpy().astype(np.float64)
         take = cs < cuts[idx] - 1e-6
         if take.any():
@@ -674,7 +771,8 @@ def refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
                       ) -> Tuple[torch.Tensor, np.ndarray]:
     """Two-tier refinement of the whole population (LP, then FM on
     levels with at most ``fm_node_limit`` vertices) on ``device``, where
-    ``hga`` must live.  Returns (parts [alpha, n_pad] int32 on the
+    ``hga`` must live; ``incumbent`` + ``mig_budget`` bound migration
+    through both tiers.  Returns (parts [alpha, n_pad] int32 on the
     device, cuts [alpha] float64)."""
     if hga.device.type != resolve_device(device).type:
         raise ValueError(f"hga lives on {hga.device}, device={device!r} was "
@@ -687,7 +785,8 @@ def refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
     if int(hga.n) <= fm_node_limit:
         parts, cuts = fm_refine_population(hga, parts, k, eps,
                                            edge_weights_pop=edge_weights_pop,
-                                           shard=shard,
+                                           shard=shard, incumbent=incumbent,
+                                           mig_budget=mig_budget,
                                            model_shard=model_shard)
     return parts, cuts
 

@@ -155,3 +155,52 @@ def request_stream(count: int, tag: str = "service", scale: float = 1.0
         reqs.append({"name": f"{tag}-{i}", "hg": hg, "k": int(tier["k"]),
                      "eps": 0.08 if i % 3 else 0.10})
     return reqs
+
+
+def drift_stream(base: Hypergraph, count: int, *,
+                 magnitude: float = 0.2, vertex_magnitude: float = 0.0,
+                 pin_edit_frac: float = 0.0, tag: str = "drift"
+                 ) -> List[Hypergraph]:
+    """Deterministic drifting-workload stream over ``base`` (DESIGN.md
+    §14).  Step ``i`` is drawn from a crc32 seed of ``(tag, i)`` and
+    drifts the PREVIOUS step:
+
+    * edge weights multiply by ``exp(N(0, magnitude))`` (float64, then
+      cast to float32), so drifted weights are real-valued;
+    * vertex weights likewise when ``vertex_magnitude > 0``;
+    * when ``pin_edit_frac > 0``, that fraction of edges is rewired to
+      fresh vertex sets of the same size: topology edits that change the
+      structure token (``core.incremental.structure_token``).
+
+    Pure weight drift chains through ``Hypergraph.with_edge_weights``,
+    so every step shares the base's ``pins`` and host incidence."""
+    out: List[Hypergraph] = []
+    prev = base
+    for i in range(count):
+        seed = zlib.crc32(f"{tag}:{i}".encode()) % (2 ** 31)
+        rng = np.random.default_rng(seed)
+        ew = (np.asarray(prev.edge_weights, np.float64)
+              * np.exp(rng.normal(0.0, magnitude, prev.m))
+              ).astype(np.float32)
+        vw = prev.vertex_weights
+        if vertex_magnitude > 0.0:
+            vw = (np.asarray(vw, np.float64)
+                  * np.exp(rng.normal(0.0, vertex_magnitude, prev.n))
+                  ).astype(np.float32)
+        if pin_edit_frac > 0.0:
+            edges = [prev.pins[prev.edge_offsets[e]:
+                               prev.edge_offsets[e + 1]].copy()
+                     for e in range(prev.m)]
+            n_edit = max(int(pin_edit_frac * prev.m), 1)
+            for e in rng.choice(prev.m, size=n_edit, replace=False):
+                edges[e] = rng.choice(prev.n, size=len(edges[e]),
+                                      replace=False)
+            hg = Hypergraph.from_edge_lists(edges, n=prev.n,
+                                            vertex_weights=vw,
+                                            edge_weights=ew)
+        else:
+            hg = prev.with_edge_weights(
+                ew, None if vw is prev.vertex_weights else vw)
+        out.append(hg)
+        prev = hg
+    return out

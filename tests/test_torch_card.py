@@ -19,7 +19,10 @@ f32 and 2e-2 in bf16 (the kernel sums in f32 and rounds once); the
 rating sums rtol 1e-6 of the plain version (another order of addition),
 exact on integers; the gain kernels exactly (integer tables).  The
 stacked refinement of the instance axis (``core.instances``) is held bit
-for bit too: its gains are integer-valued sums.
+for bit too: its gains are integer-valued sums.  So is bounded migration
+(DESIGN.md §14) on integer weights; on drifted, real-valued weights two
+runs on the card must give the same bits (their sums take fixed-order
+paths), and an integer-weighted level must take none of those paths.
 """
 import ast
 from pathlib import Path
@@ -29,10 +32,11 @@ import pytest
 import torch
 
 from port_parity import assert_bit_equal
-from repro_torch.core import instances, metrics, refine
-from repro_torch.core.hypergraph import HypergraphArrays
+from repro_torch.core import incremental, instances, metrics, refine
+from repro_torch.core.hypergraph import HypergraphArrays, contract_arrays
 from repro_torch.core.vcycle import vcycle, vcycle_instances
-from repro_torch.data.hypergraphs import _modular_netlist, random_hypergraph
+from repro_torch.data.hypergraphs import (_modular_netlist, drift_stream,
+                                          random_hypergraph)
 from repro_torch.kernels import (build, connectivity, embedding_bag, gain,
                                  ops, rating, ref)
 
@@ -428,6 +432,177 @@ def test_vcycle_instances_matches_solo_on_card(card):
         solo_part, solo_cut = vcycle(hg, part, k, eps, seed=3, device=card)
         assert np.array_equal(got[i][0], solo_part), f"request {i}"
         assert got[i][1] == solo_cut, f"request {i}"
+
+
+# --------------------------------------------------------------------------
+# bounded migration and drifted weights on the card (DESIGN.md §14)
+# --------------------------------------------------------------------------
+MIG_K, MIG_EPS = 8, 0.08
+
+
+def _migration_case(seed=11):
+    """A netlist of n 500, a balanced random incumbent, a 5% budget and
+    three members that start within half of it."""
+    hg = _netlist(500, 700, seed)
+    rng = np.random.default_rng(seed)
+    inc = refine.rebalance(hg.vertex_weights,
+                           rng.integers(0, MIG_K, hg.n).astype(np.int32),
+                           MIG_K, MIG_EPS).astype(np.int32)
+    budget = 0.05 * float(hg.vertex_weights.sum())
+    parts = []
+    for _ in range(3):
+        p = inc.copy()
+        idx = rng.choice(hg.n, 6, replace=False)
+        p[idx] = rng.integers(0, MIG_K, 6)
+        parts.append(p)
+    return hg, inc, budget, np.stack(parts)
+
+
+def _count_captures(monkeypatch) -> list:
+    """Count the FM CUDA-graph captures (``refine._capture_fm_steps``)."""
+    seen = []
+    real = refine._capture_fm_steps
+
+    def counted(*a, **kw):
+        seen.append(1)
+        return real(*a, **kw)
+    monkeypatch.setattr(refine, "_capture_fm_steps", counted)
+    return seen
+
+
+@pytest.mark.cuda
+def test_budgeted_refinement_equals_cpu_on_card(card, monkeypatch):
+    """Budgeted LP + FM on integer weights: the card (LP on the ``table``
+    kernel, FM replayed as CUDA graphs) equals the CPU bit for bit, and
+    every member stays within budget."""
+    hg, inc, budget, parts = _migration_case()
+    captures = _count_captures(monkeypatch)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        out[dev.type] = refine.refine_population(
+            hg.arrays(device=dev), parts.copy(), MIG_K, MIG_EPS,
+            incumbent=inc, mig_budget=budget, device=dev)
+    assert captures, "the FM tier ran no CUDA graph"
+    assert torch.equal(out["cuda"][0].cpu(), out["cpu"][0])
+    assert np.array_equal(out["cuda"][1], out["cpu"][1])
+    moved = [float(hg.vertex_weights[p[: hg.n] != inc].sum())
+             for p in out["cuda"][0].cpu().numpy()]
+    assert max(moved) <= budget + 1e-4
+
+
+@pytest.mark.cuda
+def test_drifted_level_gives_the_same_bits_twice_on_card(card):
+    """A level whose edge and vertex weights drifted (real-valued): its
+    contraction, its LP gains without a layout (segsum, compact), its
+    block weights and a budgeted refinement with graphed FM give the
+    same bits in two runs on the card, through the rating kernels."""
+    hg, inc, budget, parts = _migration_case(12)
+    drifted = drift_stream(hg, 1, magnitude=0.3, vertex_magnitude=0.2,
+                           tag="card")[0]
+    lv = drifted.arrays(device=card)
+    assert lv.real_edge_weights and lv.real_vertex_weights
+    ar = torch.arange(lv.n_pad, device=card)
+    cid = torch.where(ar < lv.n, ar // 2, lv.n_pad - 1)
+    parts_t = refine.pad_parts(parts, lv.n_pad, card)
+    plain = HypergraphArrays(**{**lv.__dict__, "incident": None})
+
+    def run():
+        coarse, _ = contract_arrays(lv, cid, (lv.n - 1) // 2 + 1)
+        return (coarse.edge_weights, coarse.vertex_weights,
+                metrics._gain_matrix_population_impl(plain, parts_t, MIG_K,
+                                                     assemble="segsum"),
+                metrics._gain_matrix_population_impl(plain, parts_t, 40,
+                                                     assemble="compact"),
+                metrics.block_weights_population(lv, parts_t, MIG_K),
+                *refine.refine_population(lv, parts.copy(), MIG_K, MIG_EPS,
+                                          incumbent=inc, mig_budget=budget,
+                                          device=card))
+    ops.reset_launch_counts()
+    first = run()
+    counts = ops.launch_counts()
+    assert counts["rating_segment_sum"] and counts["rating_segment_sum_batch"]
+    for a, b in zip(first, run()):
+        if torch.is_tensor(a):
+            assert torch.equal(a, b)
+        else:
+            assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_integer_level_keeps_its_sum_paths_on_card(card):
+    """An integer-weighted level carries no real-weight flag, and its
+    budgeted refinement and contraction launch neither rating kernel:
+    the sums it took before drifted weights had their own paths."""
+    hg, inc, budget, parts = _migration_case(13)
+    lv = hg.arrays(device=card)
+    assert not (lv.real_edge_weights or lv.real_vertex_weights)
+    ops.reset_launch_counts()
+    refine.refine_population(lv, parts, MIG_K, MIG_EPS, incumbent=inc,
+                             mig_budget=budget, device=card)
+    ar = torch.arange(lv.n_pad, device=card)
+    coarse, _ = contract_arrays(
+        lv, torch.where(ar < lv.n, ar // 2, lv.n_pad - 1),
+        (lv.n - 1) // 2 + 1)
+    assert not coarse.real_edge_weights
+    counts = ops.launch_counts()
+    assert counts["rating_segment_sum"] == 0
+    assert counts["rating_segment_sum_batch"] == 0
+    assert counts["gain_table"] > 0
+
+
+@pytest.mark.cuda
+def test_refine_grouped_incumbent_entries_match_solo_on_card(card):
+    """A stack of two incumbent entries (6-tuples) and a cold one
+    (4-tuple): each equal to its solo ``refine_population`` on the card,
+    within its budget."""
+    entries, solos = [], []
+    for i, seed in enumerate((21, 22, 23)):
+        hg, inc, budget, parts = _migration_case(seed)
+        hga = hg.arrays(device=card)
+        parts = refine.pad_parts(parts, hga.n_pad, card)
+        kw = dict(incumbent=inc, mig_budget=budget) if i < 2 else {}
+        entries.append((hga, parts, MIG_K, MIG_EPS, *kw.values()))
+        solos.append((refine.refine_population(
+            hga, parts.clone(), MIG_K, MIG_EPS, max_iters=4, device=card,
+            **kw), inc, budget, hg))
+    outs = instances.refine_grouped(entries, max_iters=4, device=card)
+    for i, ((gp, gc), ((sp, sc), inc, budget, hg)) in enumerate(
+            zip(outs, solos)):
+        assert torch.equal(gp, sp), f"entry {i}"
+        assert np.array_equal(gc, sc), f"entry {i}"
+        if i < 2:
+            moved = [float(hg.vertex_weights[p[: hg.n] != inc].sum())
+                     for p in gp.cpu().numpy()]
+            assert max(moved) <= budget + 1e-4
+
+
+@pytest.mark.cuda
+def test_replayed_drift_is_bit_stable_on_card(card, monkeypatch):
+    """Two ``IncrementalState``s on the device engine fed one drifted
+    stream with the same incumbents: every step is replayed, and both
+    give the same parts and cuts."""
+    monkeypatch.setenv("REPRO_COARSEN_PATH", "device")
+    hg, inc, _, _ = _migration_case(14)
+    cfg = incremental.IncrementalConfig(
+        k=MIG_K, eps=MIG_EPS, alpha=3, lp_iters=4, migration_frac=0.15,
+        contraction_limit_factor=16)
+    stream = drift_stream(hg, 2, magnitude=0.15, tag="card-incr")
+    runs = []
+    for _ in range(2):
+        st = incremental.IncrementalState()
+        assert incremental.incremental_partition(
+            hg, inc, cfg, state=st, device=card).reused == "cold"
+        prev, out = inc, []
+        for step in stream:
+            res = incremental.incremental_partition(step, prev, cfg,
+                                                    state=st, device=card)
+            assert res.reused == "replayed"
+            assert res.migration_weight <= res.budget_weight + 1e-4
+            out.append(res)
+            prev = runs[0][len(out) - 1].part if runs else res.part
+        runs.append(out)
+    for a, b in zip(*runs):
+        assert np.array_equal(a.part, b.part) and a.cut == b.cut
 
 
 # --------------------------------------------------------------------------

@@ -326,17 +326,29 @@ def test_impart_instances_validation(kw, match, duo):
                                  "shard mesh", "shard chunk",
                                  "model_shard mesh", "pop_shard config"])
 def test_later_slices_raise(how, duo):
+    """The mesh and chunk routes belong to a later slice and raise; the
+    incumbent entries and stacks (bounded migration) are ported: an
+    incumbent entry equals its solo budgeted refinement, and a stack
+    carries its incumbent and an infinite budget for a None one."""
     hga = port_hg(duo[0]).arrays(device="cpu")
     parts = np.zeros((2, hga.n_pad), np.int32)
+    if how == "incumbent entry":
+        inc = np.zeros(hga.n, np.int32)
+        (got_p, got_c), = instances.refine_grouped(
+            [(hga, parts, 2, 0.1, inc, 5.0)], device="cpu")
+        want_p, want_c = refine.refine_population(
+            hga, parts, 2, 0.1, incumbent=inc, mig_budget=5.0, device="cpu")
+        assert_bit_equal(got_p, want_p, "parts")
+        assert_bit_equal(got_c, want_c, "cuts")
+        return
+    if how == "incumbents":
+        batch = instances.stack_instances([hga], [2], [0.1],
+                                          incumbents=[np.zeros(hga.n)])
+        assert batch.incumbent.shape == (1, hga.n_pad)
+        assert bool(torch.isinf(batch.mig_budget).all())
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
-        if how == "incumbent entry":
-            instances.refine_grouped(
-                [(hga, parts, 2, 0.1, np.zeros(hga.n, np.int32), 5.0)],
-                device="cpu")
-        elif how == "incumbents":
-            instances.stack_instances([hga], [2], [0.1],
-                                      incumbents=[np.zeros(hga.n)])
-        elif how == "pop_shard config":
+        if how == "pop_shard config":
             impart_partition_instances(
                 [port_hg(duo[0])], [ImpartConfig(k=2, pop_shard="mesh")],
                 device="cpu")

@@ -178,9 +178,18 @@ def test_rebalance_equal(small_hg):
     dict(incumbent=np.zeros(4, np.int32), mig_budget=1.0)],
     ids=["shard", "model_shard", "incumbent"])
 def test_later_slice_options_raise(kw, tiny_hg):
+    """The mesh options belong to a later slice and raise; the incumbent
+    branch (bounded migration) is ported and keeps its budget."""
     hga = port_arrays(tiny_hg.structural_copy().arrays())
     parts = np.zeros((1, hga.n_pad), np.int32)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        refine.refine_population(hga, parts, 2, 0.1, device=CPU, **kw)
+    if "incumbent" in kw:
+        out, _ = refine.refine_population(hga, parts, 2, 0.1, device=CPU,
+                                          **kw)
+        inc = refine.pad_part(kw["incumbent"], hga.n_pad)
+        moved = float(hga.vertex_weights[out[0] != inc].sum())
+        assert moved <= kw["mig_budget"] + 1e-6
+    else:
+        with pytest.raises(NotImplementedError, match="later slice"):
+            refine.refine_population(hga, parts, 2, 0.1, device=CPU, **kw)
     with pytest.raises(ValueError, match="lives on"):
         refine.refine_population(hga, parts, 2, 0.1, device="meta")
