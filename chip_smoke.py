@@ -51,7 +51,7 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    bit for bit;
 11. the instance axis (``impart_partition_instances``, DESIGN.md §12):
    the reference service benchmark's mixed request stream (its first
-   ``INSTANCE_REQUESTS`` requests of ``request_stream(tag="bench")``,
+   ``INSTANCE_STREAM`` requests of ``request_stream(tag="bench")``,
    alpha 4, lp_iters 8, the reference defaults otherwise) and three ISPD98-sized requests
    (ibm01/02/03_like at k 16/12/32, memetic operators off), grouped by
    shape bucket on ``grid=(1024, 4096, 16384, 65536)``, every request
@@ -67,7 +67,17 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    stream must give the same bits), a pin edit (patched) and the weight
    drift after it (replayed), and a k-change to 32 (resident, launching
    the ``table`` gain kernel); every answer balanced, within its
-   migration budget and no worse than its incumbent.
+   migration budget and no worse than its incumbent;
+13. the partition service (``PartitionService``, DESIGN.md §12-13): the
+   reference service benchmark's 12 requests (4 slots, alpha 4,
+   lp_iters 8) in a warm pass and at offered loads of 1 and 4
+   requests/s, every answer bit-equal to its ``solve_solo`` (run in child
+   processes beside the warm pass), with p50/p99 latency per load;
+   ibm01/02/03_like, ibm08_like at k 64 and an incremental refresh of
+   ibm08 in one 4-slot service, each bit-equal to solo and checked on the
+   host and on the card; and the reference's robustness soak (six fault
+   plans, device loss included), every fault fired, every request in a
+   terminal state and every completed answer bit-equal to solo.
 
 The kernel phase also holds the connectivity and cut kernels (#7/#8, at
 the reference's sweeps and at ``CUT_ODD``'s odd shapes) and the
@@ -83,7 +93,7 @@ its cut once more on the card through ``ops.connectivity`` and
 the ops route), which must agree with the host.
 
 ``--phases`` takes a comma list of
-``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances,incremental``
+``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances,incremental,service``
 (default: all; empty for none) for runs that debug one phase; the kernels line is only printed
 when every phase ran.  ``--repair-cost=DIR`` then times the static
 memetic run of the ``sched`` phase with its mutation seconds on the
@@ -146,7 +156,7 @@ KERNEL_META = {
                       "src/repro/kernels/embedding_bag.py:66"),
 }
 PHASES = ("kernels", "cardtests", "parity", "off", "memetic", "cli", "ops",
-          "sched", "instances", "incremental")
+          "sched", "instances", "incremental", "service")
 
 # the largest level FM refines (``refine.refine_population``'s default)
 FM_NODE_LIMIT = 4096
@@ -1459,11 +1469,14 @@ def run_sched_path(design: str, k: int, must_launch, cohort_launch=(),
 
 
 # the instance phase: the reference service benchmark's request stream
-# (``BENCH_service.json``: 12 requests, alpha 4, lp_iters 8), cut to its
-# first 6 to keep the script inside its time limit (the 12 took 770 s
-# grouped and solo on the H100, almost all of it in each request's own
-# recombinations and mutations), and the serving buckets of its grid
+# (``BENCH_service.json``: 12 requests, alpha 4, lp_iters 8), of which
+# (a) groups the first INSTANCE_STREAM and (d) the first 4, to keep the
+# script inside its time limit beside the service phase (the 12 took
+# 770 s grouped and solo on the H100, and the first 6 191.6 s grouped,
+# almost all of it in each request's own recombinations and mutations),
+# and the serving buckets of its grid
 INSTANCE_REQUESTS = 6
+INSTANCE_STREAM = 3
 INSTANCE_GRID = (1024, 4096, 16384, 65536)
 INSTANCE_ISPD = (("ibm01_like", 16), ("ibm02_like", 12), ("ibm03_like", 32))
 # child processes that run the stream's solo comparisons beside the
@@ -1535,14 +1548,17 @@ json.dump(out, open(sys.argv[2], "w"))
 
 
 class _SoloChildren:
-    """Solo ``impart_partition`` runs of stream requests on the card, in
-    ``procs`` child processes started at once (request j in child
-    j % procs), so they run beside the grouped run they are compared
-    with.  ``jobs`` holds ``(request index, ImpartConfig keywords)``;
-    ``results`` waits and returns ``{index: result dict}``; ``stop``
-    ends any child still running and removes the children's files."""
+    """Solo runs of stream requests on the card, in ``procs`` child
+    processes started at once (request j in child j % procs), so they run
+    beside the grouped run they are compared with.  ``code`` is the
+    child's program (default ``impart_partition`` runs), ``count`` the
+    length of the ``request_stream`` it draws from; ``jobs`` holds
+    ``(request index, config keywords)``; ``results`` waits and returns
+    ``{index: result dict}``; ``stop`` ends any child still running and
+    removes the children's files."""
 
-    def __init__(self, jobs, procs: int, label: str):
+    def __init__(self, jobs, procs: int, label: str, code: str = _SOLO_CHILD,
+                 count: int = INSTANCE_REQUESTS):
         import tempfile
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
         self.dir = tempfile.mkdtemp(prefix="solo-", dir=os.path.join(
@@ -1552,12 +1568,12 @@ class _SoloChildren:
         for c in range(min(procs, len(jobs))):
             spec = os.path.join(self.dir, f"{c}.json")
             with open(spec, "w") as f:
-                json.dump(dict(count=INSTANCE_REQUESTS, jobs=[
+                json.dump(dict(count=count, jobs=[
                     dict(index=i, cfg=cfg) for i, cfg in jobs[c::procs]]), f)
             out = os.path.join(self.dir, f"{c}.out.json")
             log = open(os.path.join(self.dir, f"{c}.log"), "w")
             self.procs.append((subprocess.Popen(
-                [sys.executable, "-c", _SOLO_CHILD, spec, out], cwd=ROOT,
+                [sys.executable, "-c", code, spec, out], cwd=ROOT,
                 env=env, stdout=log, stderr=subprocess.STDOUT), out, log))
 
     def results(self, timeout: float = 900.0) -> dict:
@@ -1587,7 +1603,8 @@ class _SoloChildren:
 def run_instances_path(must_launch):
     """Phase ``instances``: the instance axis on the card (DESIGN.md §12).
 
-    (a) the reference service benchmark's mixed request stream through
+    (a) the first ``INSTANCE_STREAM`` requests of the reference service
+    benchmark's mixed stream through
     ``impart_partition_instances`` (static schedule, the reference
     defaults with alpha 4 and lp_iters 8), every request bit-equal to its
     solo ``impart_partition`` and checked on the host and on the card;
@@ -1660,11 +1677,12 @@ def run_instances_path(must_launch):
     hgs = [r["hg"] for r in reqs]
     kws = [dict(k=r["k"], eps=r["eps"], alpha=4, lp_iters=8, sched="static")
            for r in reqs]
-    children = _SoloChildren(list(enumerate(kws)), INSTANCE_CHILDREN,
-                             "stream")
+    children = _SoloChildren(list(enumerate(kws[:INSTANCE_STREAM])),
+                             INSTANCE_CHILDREN, "stream")
     try:
-        res_a, wall_a = grouped("stream", hgs,
-                                [ImpartConfig(**kw) for kw in kws])
+        res_a, wall_a = grouped("stream", hgs[:INSTANCE_STREAM],
+                                [ImpartConfig(**kw)
+                                 for kw in kws[:INSTANCE_STREAM]])
         solos = children.results()
     finally:
         children.stop()
@@ -2022,6 +2040,334 @@ def run_incremental_path(must_launch):
     missing = [n for n in must_launch if total.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"incremental path: kernels never launched: "
+                             f"{missing}")
+    return total
+
+
+# the service phase: the reference service benchmark's workload
+# (``benchmarks/service.py``, ``BENCH_service.json``: 12 requests of
+# ``request_stream(tag="bench")``, 4 slots, alpha 4, lp_iters 8, no
+# coalescing, offered loads 1 and 4 requests/s), full-width requests, and
+# the reference's robustness soak (``BENCH_robustness.json``)
+SERVICE_REQUESTS = 12
+SERVICE_LOADS = (1.0, 4.0)
+SERVICE_CFG = dict(slots=4, alpha=4, lp_iters=8, coalesce_ms=0.0,
+                   sched="static")
+SERVICE_CHILDREN = 3
+SERVICE_ISPD = (("ibm01_like", 16), ("ibm02_like", 12), ("ibm03_like", 32))
+SOAK_REQUESTS = 6
+SOAK_PLANS = (
+    ("none", None),
+    ("straggler", "2:straggler:delay_ms=60"),
+    ("crash", "2:crash"),
+    ("corrupt", "3:corrupt:slot=0,mode=block_range"),
+    ("device_loss", "3:device_loss:survivors=2"),
+    ("chaos", "2:straggler:delay_ms=40;3:device_loss:survivors=2;"
+              "4:corrupt:slot=0,mode=block_range;5:crash"),
+)
+# the events each plan must show (its faults fired and were handled)
+SOAK_EVENTS = {
+    "none": set(), "straggler": {"straggler_injected"}, "crash": {"crash"},
+    "corrupt": {"corrupt_injected", "quarantine"},
+    "device_loss": {"device_loss"},
+    "chaos": {"straggler_injected", "device_loss", "corrupt_injected",
+              "quarantine", "crash"},
+}
+
+_SERVICE_SOLO_CHILD = """
+import json, sys, time
+import torch
+from repro_torch.data.hypergraphs import request_stream
+from repro_torch.serve import PartitionRequest, PartitionService
+spec = json.load(open(sys.argv[1]))
+reqs = request_stream(spec["count"], tag="bench", scale=1.0)
+out = []
+for job in spec["jobs"]:
+    r = reqs[job["index"]]
+    svc = PartitionService(device="cuda", **job["cfg"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    part, cut = svc.solve_solo(PartitionRequest(name=r["name"], hg=r["hg"],
+                                                k=r["k"], eps=r["eps"]))
+    torch.cuda.synchronize()
+    out.append(dict(index=job["index"], wall=time.perf_counter() - t0,
+                    part=part.tolist(), cut=cut))
+json.dump(out, open(sys.argv[2], "w"))
+"""
+
+
+def _pct(xs, q) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def run_service_path(must_launch):
+    """Phase ``service``: the partition service on the card (DESIGN.md
+    §12-13), through ``PartitionService`` as a caller submits to it.
+
+    (a) the reference service benchmark: 12 requests of
+    ``request_stream(tag="bench")``, 4 slots, alpha 4, lp_iters 8, static
+    schedule; their ``solve_solo`` runs in ``SERVICE_CHILDREN`` child
+    processes beside a warm pass through one service, then a service per
+    offered load (1 and 4 requests/s, request i arriving at i / load s),
+    each answer bit-equal to solo; completed, throughput, p50, p99 and
+    makespan per load.  (b) full width in one 4-slot service: ibm01/02/03
+    _like at published size (k 16/12/32, eps 0.03), ibm08_like at k 64
+    (eps 0.08) cold, and ibm08's first drift step as an incremental
+    request (the solo cold ibm08 answer as incumbent, migration_frac
+    0.15); each bit-equal to ``solve_solo``, balanced, its cut equal on
+    the host and on the card, the refresh within its budget and no worse
+    than its incumbent.  (c) the reference's robustness soak: 6 modular
+    netlists (k 3), 4 slots, alpha 2, lp_iters 4, snapshots every tick,
+    under the plans none, straggler, crash, corrupt, device loss (2
+    survivors asked, one card) and chaos: every fault fired, every
+    request terminal, every completed answer bit-equal to solo.  Returns
+    the launches of the service runs and of their cut checks."""
+    import numpy as np
+    import torch
+    from repro_torch.data.hypergraphs import (_modular_netlist, drift_stream,
+                                              ispd_like, request_stream)
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.elastic import restore_device_pool
+    from repro_torch.serve import (FaultPlan, PartitionRequest,
+                                   PartitionService)
+    total, path_total = {}, {}
+
+    def timed(fn, serve=True):
+        # the launches of a service run feed the phase's gate and the
+        # kernels line; those of a solo reference run feed neither
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if serve:
+            _add_counts(total, counts)
+            _add_counts(path_total, counts)
+        return out, time.perf_counter() - t0, counts
+
+    def short(counts):
+        return {n: counts[n] for n in ("gain_table", "gain_stream",
+                                       "rating_segment_sum",
+                                       "rating_segment_sum_batch")}
+
+    def same(res, part, cut):
+        return (res.part is not None and np.array_equal(res.part, part)
+                and res.cut == cut)
+
+    # (a) the reference service workload
+    reqs = request_stream(SERVICE_REQUESTS, tag="bench", scale=1.0)
+
+    def make(r):
+        return PartitionRequest(name=r["name"], hg=r["hg"], k=r["k"],
+                                eps=r["eps"])
+
+    def drain_all(svc):
+        for r in reqs:
+            svc.submit(make(r))
+        svc.drain()
+        return svc
+
+    def check_stream(label, svc, solos):
+        bad = [r["name"] for i, r in enumerate(reqs)
+               if svc.results[r["name"]].status != "ok"
+               or not same(svc.results[r["name"]],
+                           np.asarray(solos[i]["part"]), solos[i]["cut"])]
+        if bad:
+            raise AssertionError(f"service {label}: answers differ from "
+                                 f"solve_solo: {bad}")
+
+    children = _SoloChildren([(i, SERVICE_CFG) for i in range(len(reqs))],
+                             SERVICE_CHILDREN, "service", _SERVICE_SOLO_CHILD,
+                             SERVICE_REQUESTS)
+    try:
+        warm, wall, counts = timed(lambda: drain_all(PartitionService(
+            device="cuda", **SERVICE_CFG)))
+        solos = children.results()
+    finally:
+        children.stop()
+    check_stream("warm pass", warm, solos)
+    for i, r in enumerate(reqs):
+        hg, res = r["hg"], warm.results[r["name"]]
+        cut, balanced = host_cut_and_balance(hg, res.part, r["k"],
+                                             r["eps"])[:2]
+        _add_counts(total, card_cut_check(hg, res.part, r["k"], cut,
+                                          f"service request {i}"))
+        if cut != res.cut or not balanced:
+            raise AssertionError(f"service request {i}: host cut {cut} vs "
+                                 f"{res.cut}, balanced={balanced}")
+    print(f"[service] stream n {sorted({r['hg'].n for r in reqs})} k "
+          f"{sorted({r['k'] for r in reqs})}: warm pass wall_s {wall!r}, "
+          f"{warm.tick} ticks, launches {short(counts)}; solo runs in "
+          f"{SERVICE_CHILDREN} child processes beside it, sum "
+          f"{sum(s['wall'] for s in solos.values())!r} s (not walls "
+          "alone); every answer == solo, host and card cuts equal")
+    for load in SERVICE_LOADS:
+        def offered():
+            svc = PartitionService(device="cuda", **SERVICE_CFG)
+            gap = 1.0 / load
+            t0 = time.perf_counter()
+            nxt = 0
+            while nxt < len(reqs) or svc.busy:
+                now = time.perf_counter() - t0
+                while nxt < len(reqs) and now >= nxt * gap:
+                    # latency runs from the scheduled arrival, not from
+                    # the submit a long tick may have delayed
+                    req = make(reqs[nxt])
+                    svc.submit(req)
+                    req.submitted_s = t0 + nxt * gap
+                    nxt += 1
+                if svc.busy:
+                    svc.step()
+                else:
+                    time.sleep(min(gap / 8, 0.002))
+            return svc, time.perf_counter() - t0
+        (svc, makespan), _, counts = timed(offered)
+        check_stream(f"at {load} requests/s", svc, solos)
+        lats = [res.latency_s for res in svc.results.values()]
+        print(f"[service] offered {load!r} requests/s: completed "
+              f"{len(lats)}, throughput {len(lats) / makespan!r} requests/s, "
+              f"p50 {_pct(lats, 50) * 1e3!r} ms, p99 {_pct(lats, 99) * 1e3!r} "
+              f"ms, makespan {makespan!r} s, {svc.tick} ticks; every answer "
+              f"== solo; launches {short(counts)}")
+
+    # (b) full width: ISPD98-sized requests, ibm08 cold and a refresh
+    ibm08 = ispd_like("ibm08_like", 1.0)
+    full = [PartitionRequest(name=name, hg=ispd_like(name, 1.0), k=k,
+                             eps=0.03) for name, k in SERVICE_ISPD]
+    full.append(PartitionRequest(name="ibm08_like", hg=ibm08, k=INCR_K,
+                                 eps=INCR_EPS))
+    svc = PartitionService(slots=4, alpha=4, lp_iters=8, sched="static",
+                           device="cuda")
+    (inc, inc_cut_solo), wall, _ = timed(lambda: svc.solve_solo(full[-1]),
+                                         serve=False)
+    print(f"[service] ibm08_like k={INCR_K} solo cold (the refresh's "
+          f"incumbent): wall_s {wall!r} cut {inc_cut_solo!r}")
+    step0 = drift_stream(ibm08, 1, magnitude=INCR_DRIFT,
+                         tag="chip-incr")[0]
+    full.append(PartitionRequest(name="ibm08_like refresh", hg=step0,
+                                 k=INCR_K, eps=INCR_EPS, incumbent=inc,
+                                 migration_frac=0.15))
+
+    def serve_full():
+        for req in full:
+            svc.submit(req)
+        svc.drain()
+        return svc
+    _, wall, counts = timed(serve_full)
+    print(f"[service] full width, {len(full)} requests in 4 slots: wall_s "
+          f"{wall!r}, {svc.tick} ticks, launches {short(counts)}")
+    # only the ibm08 requests (k 64, and the refresh's drifted weights)
+    # can launch #2 and #4: the served run itself must have
+    idle = [n for n in ("gain_stream", "rating_segment_sum_batch")
+            if counts.get(n, 0) == 0]
+    if idle:
+        raise AssertionError(f"service full width: kernels never launched "
+                             f"by the served run: {idle}")
+    solo_walls = []
+    for req in full:
+        res = svc.results[req.name]
+        (part, cut), w, _ = timed(lambda: svc.solve_solo(req), serve=False)
+        solo_walls.append(w)
+        hg = req.hg
+        rel = INCR_REL if req.incumbent is not None else 0.0
+        hcut, balanced, bw_max, cap = host_cut_and_balance(
+            hg, res.part, req.k, req.eps)
+        _add_counts(total, card_cut_check(hg, res.part, req.k, hcut,
+                                          f"service {req.name}", rel=rel))
+        ok = (res.status == "ok" and same(res, part, cut) and balanced
+              and abs(hcut - res.cut) <= rel * abs(hcut))
+        extra = ""
+        if req.incumbent is not None:
+            vw = hg.vertex_weights.astype(np.float64)
+            moved = float(vw[res.part != inc].sum())
+            budget = 0.15 * float(vw.sum())
+            inc_cut = host_cut_and_balance(hg, inc, req.k, req.eps)[0]
+            extra = (f", migration {moved!r} of budget {budget!r}, "
+                     f"incumbent cut on the new weights {inc_cut!r}")
+            ok = (ok and moved <= budget + 1e-3
+                  and abs(moved - res.migration_weight) <= 1e-3
+                  and res.cut <= inc_cut * (1 + INCR_REL))
+        print(f"[service] {req.name} n={hg.n} m={hg.m} k={req.k} eps="
+              f"{req.eps}: cut {res.cut!r} host cut {hcut!r} max block "
+              f"weight {bw_max!r} cap {cap!r}; solo wall_s {w!r} cut "
+              f"{cut!r}; == solo: {same(res, part, cut)}{extra}")
+        if not ok:
+            raise AssertionError(f"service full width {req.name}: status "
+                                 f"{res.status}, cut {res.cut} solo {cut} "
+                                 f"host {hcut}, balanced={balanced}")
+    print(f"[service] full width: served {wall!r} s, solo sum "
+          f"{sum(solo_walls)!r} s (single runs, no claim)")
+
+    # (c) the robustness soak
+    soak = []
+    for i in range(SOAK_REQUESTS):
+        hg = _modular_netlist(360 + 40 * i, 460 + 50 * i, seed=50 + i,
+                              n_modules=5, p_local=0.8, fanout_tail=1.5)
+        soak.append(PartitionRequest(name=f"fault-bench-{i}", hg=hg, k=3,
+                                     eps=0.08, seed=i))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        def svc_for(plan, tag):
+            return PartitionService(slots=4, alpha=2, lp_iters=4,
+                                    contraction_limit_factor=16,
+                                    ckpt_every=1, fault_plan=plan,
+                                    ckpt_dir=os.path.join(tmp, tag),
+                                    device="cuda")
+        ref = svc_for(None, "solo")
+        solo = {}
+        for req in soak:
+            solo[req.name], w, _ = timed(lambda: ref.solve_solo(req),
+                                         serve=False)
+        for name, spec in SOAK_PLANS:
+            plan = FaultPlan.parse(spec) if spec else None
+
+            def run():
+                svc = svc_for(plan, name)
+                for req in soak:
+                    svc.submit(PartitionRequest(
+                        name=req.name, hg=req.hg, k=req.k, eps=req.eps,
+                        seed=req.seed))
+                svc.drain()
+                return svc
+            try:
+                svc, wall, counts = timed(run)
+            finally:
+                restore_device_pool("cuda")
+            kinds = sorted({e["kind"] for e in svc.events})
+            terminal = all(svc.results[r.name].status in (
+                "ok", "degraded", "rejected", "timed_out", "recovered",
+                "quarantined") for r in soak)
+            equal = all(same(svc.results[r.name], *solo[r.name])
+                        for r in soak if svc.results[r.name].ok)
+            losses = [e for e in svc.events if e["kind"] == "device_loss"]
+            print(f"[service] soak {name}: wall_s {wall!r}, outcomes "
+                  f"{svc.outcome_counts()}, events {kinds}, pending "
+                  f"{0 if plan is None else plan.pending}; every completed "
+                  f"answer == solo: {equal}")
+            for e in losses:
+                print(f"[service] soak {name} device loss at tick "
+                      f"{e['tick']}: survivors {e['survivors']}, resumed "
+                      f"{e['resumed_from_ckpt']}, restarted "
+                      f"{e['restarted_from_scratch']}, recovery_s "
+                      f"{e['recovery_s']!r} (drop_s {e['drop_s']!r}, "
+                      f"rebuild_s {e['rebuild_s']!r}), "
+                      "torch.cuda.memory_allocated "
+                      f"{e['allocated_before']} -> {e['allocated_after']} "
+                      "bytes across the drop")
+            fired = plan is None or plan.pending == 0
+            if (not fired or not terminal or not equal
+                    or len(svc.results) != len(soak)
+                    or not SOAK_EVENTS[name] <= set(kinds)
+                    or any(e["allocated_after"] >= e["allocated_before"]
+                           for e in losses)):
+                raise AssertionError(f"service soak {name}: fired={fired}, "
+                                     f"terminal={terminal}, equal={equal}, "
+                                     f"events {kinds}, losses {losses}")
+    missing = [n for n in must_launch if path_total.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"service path: kernels never launched: "
                              f"{missing}")
     return total
 
@@ -2454,6 +2800,10 @@ def main() -> int:
         add(run_incremental_path(("gain_stream", "gain_table",
                                   "rating_segment_sum",
                                   "rating_segment_sum_batch")))
+    if "service" in phases:
+        add(run_service_path(("gain_table", "gain_stream",
+                              "rating_segment_sum",
+                              "rating_segment_sum_batch")))
     if "--profile" in sys.argv[1:]:
         for design, k in (("ibm08_like", 64), ("ibm01_like", 16)):
             profile_main_path(design, k)

@@ -25,3 +25,11 @@ def level_exhausted(steps_done: int, level_budget: Optional[int]) -> bool:
     ladder position."""
     return level_budget is not None and steps_done >= level_budget
 
+
+def deadline_remaining_s(submitted_s: float,
+                         deadline_s: Optional[float]) -> Optional[float]:
+    """Seconds left before a request's deadline (``None`` → no deadline;
+    negative → already past)."""
+    if not deadline_s:
+        return None
+    return (submitted_s + deadline_s) - time.perf_counter()

@@ -23,6 +23,9 @@ for bit too: its gains are integer-valued sums.  So is bounded migration
 (DESIGN.md §14) on integer weights; on drifted, real-valued weights two
 runs on the card must give the same bits (their sums take fixed-order
 paths), and an integer-weighted level must take none of those paths.
+The partition service on the card is held to its solo runs bit for bit,
+through a device loss too, and checkpoints round-trip CUDA tensors
+exactly.
 """
 import ast
 from pathlib import Path
@@ -32,13 +35,17 @@ import pytest
 import torch
 
 from port_parity import assert_bit_equal
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import incremental, instances, metrics, refine
+from repro_torch.core.dcoarsen import build_hierarchy
 from repro_torch.core.hypergraph import HypergraphArrays, contract_arrays
 from repro_torch.core.vcycle import vcycle, vcycle_instances
 from repro_torch.data.hypergraphs import (_modular_netlist, drift_stream,
                                           random_hypergraph)
 from repro_torch.kernels import (build, connectivity, embedding_bag, gain,
                                  ops, rating, ref)
+from repro_torch.runtime.elastic import restore_device_pool
+from repro_torch.serve import FaultPlan, PartitionRequest, PartitionService
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -603,6 +610,124 @@ def test_replayed_drift_is_bit_stable_on_card(card, monkeypatch):
         runs.append(out)
     for a, b in zip(*runs):
         assert np.array_equal(a.part, b.part) and a.cut == b.cut
+
+
+# --------------------------------------------------------------------------
+# the partition service and its fault handling on the card
+# --------------------------------------------------------------------------
+def _service_requests(count=2):
+    """Modular netlists deep enough (``contraction_limit_factor`` 16) for
+    a fault to land mid-flight."""
+    return [PartitionRequest(
+        name=f"card-svc-{i}", k=(3, 8)[i % 2], eps=0.08, seed=i,
+        hg=_modular_netlist(360 + 60 * i, 460 + 70 * i, seed=30 + i,
+                            n_modules=5, p_local=0.8, fanout_tail=1.5))
+        for i in range(count)]
+
+
+def _card_service(card, **kw):
+    return PartitionService(slots=2, alpha=2, lp_iters=4,
+                            contraction_limit_factor=16, device=card, **kw)
+
+
+@pytest.mark.cuda
+def test_service_equals_solo_on_card(card):
+    """Two requests through two slots on the card (device coarsening,
+    the gain kernels): each answer bit-equal to its solo run."""
+    reqs = _service_requests()
+    svc = _card_service(card)
+    for r in reqs:
+        svc.submit(r)
+    svc.drain()
+    for r in reqs:
+        part, cut = svc.solve_solo(r)
+        got = svc.results[r.name]
+        assert got.status == "ok"
+        assert np.array_equal(got.part, part) and got.cut == cut
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ckpt_every", [1, 0])
+def test_device_loss_mid_flight_on_card(card, ckpt_every):
+    """A device loss at tick 2 on the card: every slot drops its device
+    state, the requests' level-0 arrays are built anew (not the cached
+    tensors), and the resumed (or restarted) answers are bit-equal to
+    solo."""
+    reqs = _service_requests()
+    svc = _card_service(card, ckpt_every=ckpt_every,
+                        fault_plan=FaultPlan.parse("2:device_loss:survivors=1"))
+    for r in reqs:
+        svc.submit(r)
+    svc.step()
+    old = [s.hier.level_arrays(0) for s in svc.slots]
+    assert all(s.li > 0 for s in svc.slots), "ladders too shallow"
+    svc.step()
+    loss = [e for e in svc.events if e["kind"] == "device_loss"]
+    assert len(loss) == 1 and loss[0]["survivors"] == 1
+    assert loss[0]["allocated_after"] < loss[0]["allocated_before"]
+    assert loss[0]["recovery_s"] == pytest.approx(
+        loss[0]["drop_s"] + loss[0]["rebuild_s"])
+    for s, hga0 in zip(svc.slots, old):
+        new = s.hier.level_arrays(0)
+        assert new is not hga0
+        assert new.pin_vertex is not hga0.pin_vertex
+        assert new.vertex_weights is not hga0.vertex_weights
+        assert torch.equal(new.pin_vertex, hga0.pin_vertex)
+    del old
+    svc.drain()
+    restore_device_pool(card)
+    for r in reqs:
+        part, cut = svc.solve_solo(r)
+        got = svc.results[r.name]
+        assert got.status == "recovered"
+        assert np.array_equal(got.part, part) and got.cut == cut
+
+
+@pytest.mark.cuda
+def test_device_hierarchy_rebuild_is_bit_stable_on_card(card):
+    """The device engine's hierarchy rebuilt from the same seed, with
+    the request's cached arrays dropped in between (what a device-loss
+    resume does), equals the first build leaf for leaf."""
+    hg = _service_requests(1)[0].hg
+    builds = []
+    for _ in range(2):
+        hg._arrays_cache.clear()
+        builds.append(build_hierarchy(hg, 3, seed=5,
+                                      contraction_limit_factor=16,
+                                      device=card))
+    a, b = builds
+    assert a.num_levels == b.num_levels > 2
+    for la, lb in zip(a.levels, b.levels):
+        assert (la.n, la.m, la.p) == (lb.n, lb.m, lb.p)
+        if la.cluster_id is not None:
+            assert torch.equal(la.cluster_id, lb.cluster_id)
+        for f in ("pin_vertex", "pin_edge", "vertex_weights", "edge_weights",
+                  "edge_sizes", "incident"):
+            x, y = getattr(la.hga, f), getattr(lb.hga, f)
+            assert (x is None) == (y is None), f
+            if x is not None:
+                assert torch.equal(x, y), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("async_save", [False, True])
+def test_checkpoint_restore_onto_the_card(card, async_save, tmp_path):
+    g = torch.Generator(device=card).manual_seed(2)
+    state = {"parts": torch.randint(0, 8, (3, 50), device=card,
+                                    dtype=torch.int32, generator=g),
+             "w": (torch.randn(7, device=card, generator=g),
+                   torch.arange(4, device=card))}
+    ckpt = CheckpointManager(str(tmp_path), async_save=async_save)
+    ckpt.save(1, state, extra={"tick": 1})
+    ckpt.wait()
+    for device in (card, None):
+        back, extra = ckpt.restore(state, device=device)
+        assert extra == {"tick": 1}
+        for x, y in ((back["parts"], state["parts"]),
+                     (back["w"][0], state["w"][0]),
+                     (back["w"][1], state["w"][1])):
+            assert x.device.type == "cuda" and x.dtype == y.dtype
+            assert torch.equal(x, y)
 
 
 # --------------------------------------------------------------------------
