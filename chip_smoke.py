@@ -847,10 +847,77 @@ def _dlrm_inputs(dev):
     return table, torch.from_numpy(idx.astype(np.int32)).to(dev)
 
 
+def _dlrm_draws(idx, rows: int) -> dict:
+    """The probe's id draws at the DLRM shape, each with ``idx``'s pads:
+    every id the same row (L1 hits after the first: latency and issue
+    only), ids uniform over all ``rows`` (no reuse: each read from device
+    memory) and the zipf draw ``idx`` itself."""
+    import torch
+    pads = idx < 0
+    gen = torch.Generator(device=idx.device).manual_seed(1)
+    uniform = torch.randint(0, rows, idx.shape, generator=gen,
+                            device=idx.device, dtype=torch.int32)
+    return {"same row": torch.full_like(idx, rows // 2).masked_fill(pads, -1),
+            "uniform": uniform.masked_fill(pads, -1), "zipf": idx}
+
+
+def _embedding_bag_bound(table, idx):
+    """(bound ms, what bounds it): each input read once, the distinct rows
+    the valid ids name (the skewed ids repeat rows, which a cache serves),
+    the ids and the output; one add per value of a valid id."""
+    import torch
+    b, l = idx.shape
+    d, elem = table.shape[1], table.element_size()
+    distinct = int(torch.unique(idx[idx >= 0]).numel())
+    nbytes = distinct * d * elem + b * l * 4 + b * d * elem
+    return _bound_ms(nbytes, int((idx >= 0).sum()) * d)
+
+
+def embedding_bag_times(table, idx) -> dict:
+    """#9 at the DLRM shape in a CUDA graph with the ids rotated over
+    copies that exceed twice the L2 (``_graph_cold_ms``; the 3.8 GB table
+    exceeds it anyway): f32 and bf16 sums of the zipf draw, then the f32
+    sum of the probe's other draws (``_dlrm_draws``)."""
+    import torch
+    from repro_torch.kernels import embedding_bag
+    out = {}
+    half = table.to(torch.bfloat16)
+    for label, tab in (("f32", table), ("bf16", half)):
+        out[f"embedding_bag {label} sum zipf (graph, cold ids)"] = \
+            _graph_cold_ms(lambda x: embedding_bag.embedding_bag(tab, x), idx)
+    del half
+    for draw, ids in _dlrm_draws(idx, table.shape[0]).items():
+        if draw != "zipf":
+            out[f"embedding_bag f32 sum {draw} (graph, cold ids)"] = \
+                _graph_cold_ms(
+                    lambda x: embedding_bag.embedding_bag(table, x), ids)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bag_order_sum(table, idx, combiner: str):
+    """The f32 sum over each bag's valid ids in bag order, rounded once to
+    the table's dtype (``mean``: then divided by L, correctly rounded):
+    what #9 computes, bit for bit."""
+    import torch
+    r, l = table.shape[0], idx.shape[1]
+    acc = torch.zeros((idx.shape[0], table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    for j in range(l):
+        ids = idx[:, j]
+        acc = torch.where((ids >= 0)[:, None],
+                          acc + table[ids.clamp(0, r - 1).long()].float(), acc)
+    if combiner == "mean":
+        acc = acc / torch.full_like(acc, l)
+    return acc.to(table.dtype)
+
+
 def check_embedding_bag_kernel(report, dev):
-    """Kernel #9 against its plain version at the DLRM shape (f32 sum and
-    mean, bf16) and at the reference's sweep; timed at the DLRM shape
-    beside ``torch.nn.functional.embedding_bag``."""
+    """Kernel #9 against its plain version and, bit for bit, the bag-order
+    sum at the DLRM shape (f32 sum and mean, bf16) and at the reference's
+    sweep; timed at the DLRM shape eagerly and in a CUDA graph with the
+    ids cold (``embedding_bag_times``), beside
+    ``torch.nn.functional.embedding_bag`` timed the same way."""
     import numpy as np
     import torch
     from repro_torch.kernels import embedding_bag, ref
@@ -866,6 +933,9 @@ def check_embedding_bag_kernel(report, dev):
                                    atol=tol, msg=lambda m: f"{what}: {m}")
         if not torch.equal(got, again):
             raise AssertionError(f"embedding_bag not bit-stable at {what}")
+        if not torch.equal(got, _bag_order_sum(table, idx, combiner)):
+            raise AssertionError(f"embedding_bag differs from the bag-order "
+                                 f"sum at {what}")
         if table.dtype == torch.float32:
             errs.append(float((got - want).abs().max()))
 
@@ -888,30 +958,36 @@ def check_embedding_bag_kernel(report, dev):
     half = table.to(torch.bfloat16)
     checked(half, idx, "sum", "DLRM bf16")
     del half
-    b, l = idx.shape
-    ms = _time_ms(lambda: embedding_bag.embedding_bag(table, idx))
+    eager_ms = _time_ms(lambda: embedding_bag.embedding_bag(table, idx))
+    graph = embedding_bag_times(table, idx)
+    ms = graph["embedding_bag f32 sum zipf (graph, cold ids)"]
     plain_ms = _time_ms(lambda: ref.embedding_bag_ref(table, idx), iters=3)
-    ids = idx.clamp(min=0)
-    weights = (idx >= 0).to(torch.float32)
-    lib_ms = _time_ms(lambda: torch.nn.functional.embedding_bag(
-        ids, table, mode="sum", per_sample_weights=weights))
-    # each input read once: the distinct rows the valid ids name (the
-    # skewed ids repeat rows, which a cache serves), the ids, the output
+    # the library call's operands, rotated as the kernel's ids are: the
+    # clamped ids and, bit-cast, the 0/1 weights that drop the pads
+    lib_in = torch.stack([idx.clamp(min=0),
+                          (idx >= 0).to(torch.float32).view(torch.int32)])
+    lib_ms = _graph_cold_ms(lambda x: torch.nn.functional.embedding_bag(
+        x[0], table, mode="sum", per_sample_weights=x[1].view(
+            torch.float32)), lib_in)
+    bound, by = _embedding_bag_bound(table, idx)
     distinct = int(torch.unique(idx[idx >= 0]).numel())
-    nbytes = distinct * DLRM_DIM * 4 + b * l * 4 + b * DLRM_DIM * 4
-    bound, by = _bound_ms(nbytes, int((idx >= 0).sum()) * DLRM_DIM)
     print(f"[kernel] embedding_bag DLRM table={tuple(table.shape)} "
           f"idx={tuple(idx.shape)} ({distinct} distinct rows, "
           f"{float((idx < 0).float().mean())!r} pads): allclose 1e-5 (f32 "
-          f"sum, mean), 2e-2 (bf16), bit-stable, at main-path and "
-          f"{len(sweep)} sweep shapes")
-    for label, val in (("ms", ms), ("plain_ms", plain_ms),
-                       ("library_ms", lib_ms), ("bound_ms", bound)):
+          f"sum, mean), 2e-2 (bf16), bit-equal to the bag-order sum and "
+          f"bit-stable, at main-path and "
+          f"{len(sweep)} sweep shapes; ms is the f32 sum in a CUDA graph "
+          "with the ids cold (library_ms the same way)")
+    for label, val in (("ms", ms), ("eager_ms", eager_ms),
+                       ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("bound_ms", bound), ("share_of_bound", bound / ms)):
         print(f"[kernel] embedding_bag {label} {val!r}")
+    for label, val in graph.items():
+        print(f"[kernel] {label} {val!r}")
     report["embedding_bag"] = dict(max_abs_err=max(errs), ms=ms,
                                    plain_ms=plain_ms, bound_ms=bound,
                                    bound_by=by, library_ms=lib_ms)
-    del table, idx, ids, weights
+    del table, idx, lib_in
     torch.cuda.empty_cache()
 
 
@@ -2508,12 +2584,14 @@ def load_gain_level(path: str, dev):
 
 def kernel_times(level_path: str) -> dict:
     """Times of the kernels this tree's ``repro_torch`` redesigned (#1 to
-    #8) at the shapes the kernel phase times them, #4 at the FM step's
+    #9) at the shapes the kernel phase times them, #4 at the FM step's
     shape (the level saved by ``save_fm_level``; the kernel alone and the
     whole ``_gain_segsum`` with member rows), and #1 at k 32 and at the
     coarse level saved there, all in a CUDA graph (``_graph_ms``); #7 and
-    #8 both warm (the pins read from L2) and cold (``_graph_cold_ms``).
-    Uses only calls that older trees of the port have too."""
+    #8 both warm (the pins read from L2) and cold (``_graph_cold_ms``);
+    #9 with its ids cold, f32 and bf16, and the probe's draws
+    (``embedding_bag_times``).  Uses only calls that older trees of the
+    port have too."""
     import torch
     from repro_torch.core import metrics
     from repro_torch.data.hypergraphs import ispd_like
@@ -2561,6 +2639,8 @@ def kernel_times(level_path: str) -> dict:
                                dev)
     out[f"gain_table coarse n={inc.shape[0]} D={inc.shape[1]}"] = _graph_ms(
         lambda: gain.gain_gather_batch(inc, bi, wi))
+    del inc, bi, wi
+    out.update(embedding_bag_times(*_dlrm_inputs(dev)))
     return out
 
 
@@ -2602,6 +2682,14 @@ def run_kernel_compare(parent_src: str) -> None:
               f"{_bound_ms(nbytes, valid)[0]!r}, cutsize bound_ms "
               f"{_bound_ms(nbytes + 4, valid)[0]!r}")
         del pins, part
+        table, idx = _dlrm_inputs(dev)
+        for draw, ids in _dlrm_draws(idx, table.shape[0]).items():
+            print(f"[compare] embedding_bag f32 sum {draw} bound_ms "
+                  f"{_embedding_bag_bound(table, ids)[0]!r}")
+        print(f"[compare] embedding_bag bf16 sum zipf bound_ms "
+              f"{_embedding_bag_bound(table.to(torch.bfloat16), idx)[0]!r}")
+        del table, idx
+        torch.cuda.empty_cache()
         for label, src in (("parent", parent_src), ("this", here),
                            ("this", here), ("parent", parent_src)):
             proc = subprocess.run(

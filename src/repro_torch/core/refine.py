@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.env import resolve_device
 from .hypergraph import HypergraphArrays, is_real_valued
-from . import metrics
+from . import metrics, popshard
 
 NEG = -1e30
 
@@ -435,6 +435,8 @@ def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
     an infinite budget).  Returns (parts [alpha, n_pad] int32 on hga's
     device, cuts [alpha] float64)."""
     _check_slice_options(shard, model_shard)
+    # the replicated structure on the one device this path touches
+    popshard.enforce_structure_budget(hga, 1)
     dev = hga.device
     cap = _cap_for(hga, k, eps)
     parts = pad_parts(parts, hga.n_pad, dev)
@@ -728,6 +730,7 @@ def fm_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
     inside every pass.  Returns (parts [alpha, n_pad], cuts [alpha]
     float64)."""
     _check_slice_options(shard, model_shard)
+    popshard.enforce_structure_budget(hga, 1)
     dev = hga.device
     cap = _cap_for(hga, k, eps)
     parts = pad_parts(parts, hga.n_pad, dev)

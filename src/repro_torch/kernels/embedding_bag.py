@@ -4,10 +4,12 @@
 ``embedding_bag(table, idx, combiner)`` gathers ``table[idx[b, l]]`` for
 every id >= 0 of bag b and sums the rows in f32 (``mean`` divides the
 sum by L, pads counted), storing [B, D] in the table's dtype (f32 or
-bf16).  On the card one warp owns one bag (``csrc/embedding_bag.cu``).
-On CPU tensors the wrapper runs the plain version from ``ref``; on CUDA
-tensors it launches or raises.  The wrapper counts its kernel launches
-in its ``launches`` attribute.
+bf16).  On the card a group of lanes owns a bag, one 16-byte piece of
+the row a lane (a warp at f32 D 128, half a warp at bf16 D 128), and
+adds its rows in bag order (``csrc/embedding_bag.cu``).  On CPU tensors
+the wrapper runs the plain version from ``ref``; on CUDA tensors it
+launches or raises.  The wrapper counts its kernel launches in its
+``launches`` attribute.
 """
 from __future__ import annotations
 

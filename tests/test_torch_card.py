@@ -15,7 +15,8 @@ Tolerances: connectivity is integer arithmetic and compared bit for
 bit; the cut of integer weights exactly (every f32 sum below 2**24 is
 exact in any order), of real weights with rel 1e-5 (the reference's own
 bar) and bit-equal over two launches; the embedding bag with 1e-5 in
-f32 and 2e-2 in bf16 (the kernel sums in f32 and rounds once); the
+f32 and 2e-2 in bf16 (the kernel sums in f32 and rounds once), and bit
+for bit to a sequential f32 sum in bag order; the
 rating sums rtol 1e-6 of the plain version (another order of addition),
 exact on integers; the gain kernels exactly (integer tables).  The
 stacked refinement of the instance axis (``core.instances``) is held bit
@@ -191,6 +192,56 @@ def test_embedding_bag_kernel_on_card(card, dtype, combiner):
     torch.testing.assert_close(
         embedding_bag.embedding_bag(table, idx, combiner).float(),
         ref.embedding_bag_ref(table, idx, combiner).float(),
+        rtol=tol, atol=tol)
+
+
+# (rows, D, bags, L, dtype, combiner, offset of the table in its buffer
+# in elements): D off the 16-byte pieces and an unaligned table take the
+# one-value path; D 64 gives a bag half a warp, D 256 two passes of a
+# warp; L 1 and L 100 (longer than a warp's ids) bound the id loop
+EB_CASES = {
+    "d30": (500, 30, 257, 26, "float32", "sum", 0),
+    "unaligned": (500, 32, 129, 26, "float32", "sum", 1),
+    "bf16_d36": (400, 36, 100, 7, "bfloat16", "sum", 0),
+    "l1": (1000, 128, 333, 1, "float32", "sum", 0),
+    "l100": (1000, 128, 97, 100, "float32", "sum", 0),
+    "d64": (700, 64, 301, 26, "float32", "sum", 0),
+    "d256": (300, 256, 65, 13, "float32", "mean", 0),
+    "bf16_mean": (1000, 128, 333, 26, "bfloat16", "mean", 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EB_CASES))
+def test_embedding_bag_kernel_bag_order_on_card(card, case):
+    """Every 5th bag all pads, ids up to R + 4 (read as row R - 1): the
+    kernel equals, bit for bit, an f32 sum in bag order (``mean`` then
+    divides by L) rounded once to the table's dtype; it is allclose to
+    the plain version and gives the same bits on two launches."""
+    r, d, b, l, dtype, combiner, offset = EB_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    buf = torch.from_numpy(rng.normal(size=r * d + offset).astype(
+        np.float32)).to(card, getattr(torch, dtype))
+    table = buf[offset:].view(r, d)
+    idx = rng.integers(-1, r + 5, (b, l)).astype(np.int32)
+    idx[::5] = -1
+    idx = torch.from_numpy(idx).to(card)
+    got = embedding_bag.embedding_bag(table, idx, combiner)
+    again = embedding_bag.embedding_bag(table, idx, combiner)
+    acc = torch.zeros((b, d), dtype=torch.float32, device=card)
+    for j in range(l):
+        ids = idx[:, j]
+        rows = table[ids.clamp(0, r - 1).long()].float()
+        acc = torch.where((ids >= 0)[:, None], acc + rows, acc)
+    if combiner == "mean":
+        # a correctly rounded division, as the kernel's (torch divides by
+        # a Python number through its reciprocal on the card)
+        acc = acc / torch.full_like(acc, l)
+    assert torch.equal(got, acc.to(table.dtype))
+    assert torch.equal(got, again)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(
+        got.float(), ref.embedding_bag_ref(table, idx, combiner).float(),
         rtol=tol, atol=tol)
 
 
