@@ -32,9 +32,10 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    gain kernel) and on ``ispd_like("ibm01_like")`` at k=16 (table gain
    kernel);
 7. the memetic path: ``impart_partition`` on ``ibm08_like`` at k=64 with
-   the reference defaults (alpha 7, beta 7, recombination, mutation, one
-   final V-cycle), with its recombination branches counted and its time
-   split into recombination, mutation, final V-cycle and the rest;
+   the reference defaults (alpha 7, recombination, mutation, one final
+   V-cycle) but beta ``MEMETIC_BETA`` (3, not 7), with its recombination
+   branches counted and its time split into recombination, mutation,
+   final V-cycle and the rest;
 8. the partition CLI: ``python -m repro_torch.launch.partition --method
    multilevel`` in a child process on ``ibm08_like`` (k=64, one-member
    stream kernel) and ``ibm01_like`` (k=16, one-member table kernel); its
@@ -45,7 +46,7 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    features x 65,536 bags, D=128, the MLPerf cardinalities capped at
    2**20 rows);
 10. the bandit operator schedule on ``ibm01_like`` (k=16, the reference
-   defaults): the static schedule's wall W, a ``sched="bandit"`` run with
+   defaults but beta ``SCHED_BETA``, 3): the static schedule's wall W, a ``sched="bandit"`` run with
    ``time_budget_s=W``, and the replay of its trace after a JSON
    round-trip, which must give the live partition, cut and arm sequence
    bit for bit;
@@ -77,7 +78,17 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    ibm08 in one 4-slot service, each bit-equal to solo and checked on the
    host and on the card; and the reference's robustness soak (six fault
    plans, device loss included), every fault fired, every request in a
-   terminal state and every completed answer bit-equal to solo.
+   terminal state and every completed answer bit-equal to solo;
+14. the placement substrate's serving path (``repro_torch.models``,
+   ``repro_torch.apps.placement``): DLRM at the MLPerf width (each table
+   capped at ``SUBSTRATE_ROW_CAP`` rows) at serve_p99, serve_bulk and
+   retrieval_cand, its user bag through #9 bit-equal to the bag-order
+   sum and its p99 logits equal to a CPU run; the three placements
+   (DLRM rows into 64 shards, a GNN graph into 16 devices, MoE experts
+   into 4 pods) on the card, each cut equal to its host recount and
+   balanced; the GNN zoo at its published widths on full_graph_sm
+   (equal to a CPU run), molecule and graphsage-reddit's sampled
+   minibatch.
 
 The kernel phase also holds the connectivity and cut kernels (#7/#8, at
 the reference's sweeps and at ``CUT_ODD``'s odd shapes) and the
@@ -93,7 +104,7 @@ its cut once more on the card through ``ops.connectivity`` and
 the ops route), which must agree with the host.
 
 ``--phases`` takes a comma list of
-``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances,incremental,service``
+``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances,incremental,service,substrate``
 (default: all; empty for none) for runs that debug one phase; the kernels line is only printed
 when every phase ran.  ``--repair-cost=DIR`` then times the static
 memetic run of the ``sched`` phase with its mutation seconds on the
@@ -119,6 +130,7 @@ printing any result.
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import os
@@ -156,10 +168,18 @@ KERNEL_META = {
                       "src/repro/kernels/embedding_bag.py:66"),
 }
 PHASES = ("kernels", "cardtests", "parity", "off", "memetic", "cli", "ops",
-          "sched", "instances", "incremental", "service")
+          "sched", "instances", "incremental", "service", "substrate")
 
 # the largest level FM refines (``refine.refine_population``'s default)
 FM_NODE_LIMIT = 4096
+
+# recombination rounds of the memetic path (the reference default is 7)
+# and of the sched phase's three runs (static, bandit, replay), cut to
+# keep the whole script well inside its 1,200 s with the substrate
+# phase: on one H100 host it took 1,199 s of command at 7 and 7, and
+# 1,128 s at 5 and 3
+MEMETIC_BETA = 3
+SCHED_BETA = 3
 
 # MLPerf DLRM (Criteo 1TB): 26 sparse features, embed_dim 128, the table
 # cardinalities of the reference's dlrm_mlperf config, each capped here
@@ -2448,6 +2468,324 @@ def run_service_path(must_launch):
     return total
 
 
+# MLPerf DLRM at its published widths with each table capped at this many
+# rows (the MLPerf DLRM reference's own --max-ind-range knob): 54,063,992
+# rows, 27.7 GB in f32; the full 187,767,399 rows (96.1 GB) exceed the card
+SUBSTRATE_ROW_CAP = 10_000_000
+# queries of the DLRM row placement (the rows they touch are its vertices)
+# and the shards it places them on
+SUBSTRATE_QUERIES = 8192
+SUBSTRATE_SHARDS = 64
+# Reddit's node count (the GNN_SHAPES minibatch_lg shape) and a tenth of
+# its 114,615,892 edges: the host draws and sorts the edges inside the
+# phase's time
+REDDIT_NODES = 232_965
+REDDIT_EDGES = 114_615_892 // 10
+GNN_ZOO = ("gatedgcn", "gin-tu", "meshgraphnet", "graphsage-reddit")
+# card against CPU: f32 products and segment sums add in other orders
+# (cuBLAS against the CPU's BLAS, atomics in ``index_add_``)
+SUBSTRATE_RTOL, SUBSTRATE_ATOL = 1e-4, 1e-5
+
+
+def _phase_counts(total: dict, counts: dict, what: str, must) -> None:
+    """Add a run's launch counts to ``total``; fail when a kernel of
+    ``must`` (names, or tuples of names of which one must launch) did not
+    launch."""
+    _add_counts(total, counts)
+    for need in must:
+        names = (need,) if isinstance(need, str) else need
+        if not any(counts.get(n, 0) for n in names):
+            raise AssertionError(f"substrate {what}: none of {names} "
+                                 f"launched ({counts})")
+
+
+def _substrate_dlrm(dev, total):
+    """(a) DLRM at the MLPerf width, tables capped: forward at serve_p99
+    and serve_bulk, retrieval_scores at retrieval_cand, each timed with
+    CUDA events after a warm-up; the p99 logits against the same module
+    on the CPU over the rows the batch touches, the user bag (#9) against
+    the bag-order sum on the card, bit for bit."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.configs.base import DLRM_SHAPES
+    from repro_torch.data.recsys import click_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import dlrm
+    from repro_torch.models.layers import batch_to
+    full = dlrm_mlperf.CONFIG
+    cfg = dataclasses.replace(full, table_sizes=tuple(
+        min(t, SUBSTRATE_ROW_CAP) for t in full.table_sizes))
+    shapes = {s.name: s.p() for s in DLRM_SHAPES}
+    t0 = time.perf_counter()
+    model = dlrm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+    torch.cuda.synchronize()
+    print(f"[substrate] dlrm {full.name}: D {cfg.embed_dim}, "
+          f"{cfg.n_sparse} tables, bot {(cfg.n_dense,) + cfg.bot_mlp}, top "
+          f"{(dlrm.interaction_dim(cfg),) + cfg.top_mlp}, {cfg.interaction}, "
+          f"{cfg.dtype}; cut: each table capped at {SUBSTRATE_ROW_CAP} rows "
+          f"(--max-ind-range): {cfg.total_rows} of {full.total_rows} rows, "
+          f"{model.tables.nbytes / 1e9!r} GB; init {time.perf_counter() - t0!r}"
+          f" s")
+    rng = np.random.default_rng(0)
+    p99 = click_batch(cfg, shapes["serve_p99"]["batch"], seed=1)
+    bulk = click_batch(cfg, shapes["serve_bulk"]["batch"], seed=2)
+    query = click_batch(cfg, shapes["retrieval_cand"]["batch"], seed=3)
+    runs = {
+        "serve_p99": (model, batch_to({k: p99[k] for k in ("dense",
+                                                           "sparse_idx")},
+                                      dev), 20),
+        "serve_bulk": (model, batch_to({k: bulk[k] for k in (
+            "dense", "sparse_idx")}, dev), 5),
+        "retrieval_cand": (model.retrieval_scores, batch_to({
+            "dense": query["dense"], "sparse_idx": query["sparse_idx"],
+            "cand_idx": rng.integers(0, cfg.total_rows, shapes[
+                "retrieval_cand"]["n_candidates"]).astype(np.int32)}, dev),
+            20)}
+    outs = {}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for name, (fn, batch, iters) in runs.items():
+            torch.cuda.reset_peak_memory_stats()
+            outs[name] = fn(batch)
+            ms = _time_ms(lambda: fn(batch), iters=iters, warmup=2)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            b = batch["dense"].shape[0]
+            print(f"[substrate] dlrm {name}: batch {b} -> "
+                  f"{tuple(outs[name].shape)}, ms {ms!r} (CUDA events, mean "
+                  f"of {iters} after 2 warm-up), peak device memory "
+                  f"{peak!r} GB")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        _phase_counts(total, counts, "dlrm", ("embedding_bag",))
+        print(f"[substrate] dlrm launches {counts}")
+        for name, out in outs.items():
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"dlrm {name}: non-finite output")
+        # p99 logits against the CPU over the rows the batch touches
+        idx = runs["serve_p99"][1]["sparse_idx"]
+        uniq, inv = torch.unique(idx, return_inverse=True)
+        small = dataclasses.replace(cfg, table_sizes=(int(uniq.numel()),)
+                                    + (0,) * (cfg.n_sparse - 1))
+        cpu = dlrm.DLRM(small, device="cpu")
+        cpu.tables = torch.nn.Parameter(model.tables[uniq].cpu())
+        cpu.bot.load_state_dict(model.bot.state_dict())
+        cpu.top.load_state_dict(model.top.state_dict())
+        want = cpu({"dense": runs["serve_p99"][1]["dense"].cpu(),
+                    "sparse_idx": inv.to(torch.int32).cpu()})
+        got = outs["serve_p99"].cpu()
+        torch.testing.assert_close(got, want, rtol=SUBSTRATE_RTOL,
+                                   atol=SUBSTRATE_ATOL)
+        print(f"[substrate] dlrm serve_p99 logits equal the CPU run over "
+              f"the {int(uniq.numel())} rows touched (rtol {SUBSTRATE_RTOL}"
+              f", atol {SUBSTRATE_ATOL}): max abs diff "
+              f"{float((got - want).abs().max())!r}")
+        # the user vector: #9 against the bag-order sum, bit for bit
+        sparse = runs["retrieval_cand"][1]["sparse_idx"]
+        bag = model.user_bag(sparse)
+        plain = _bag_order_sum(model.tables.detach(), sparse, "sum")
+        if not torch.equal(bag, plain):
+            raise AssertionError("dlrm retrieval: the user bag (#9) differs "
+                                 "from the bag-order sum")
+        print("[substrate] dlrm retrieval_cand user bag through #9: "
+              "bit-equal to the bag-order sum on the card")
+    del model, runs, outs, cpu, fn, batch, bag, plain
+    torch.cuda.empty_cache()
+
+
+def _substrate_placement(dev, total) -> None:
+    """(b) The three placements on the card, each checked on the host:
+    cut (recount of the assignment), balance, reduction, kernels."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.apps import placement
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.data.graphs import power_law_graph
+    from repro_torch.data.recsys import click_batch
+    from repro_torch.kernels import ops
+    full = dlrm_mlperf.CONFIG
+    cfg = dataclasses.replace(full, table_sizes=tuple(
+        min(t, SUBSTRATE_ROW_CAP) for t in full.table_sizes))
+    idx = click_batch(cfg, SUBSTRATE_QUERIES, seed=4)["sparse_idx"]
+    uniq, inv = np.unique(idx, return_inverse=True)
+    rows = inv.reshape(idx.shape)
+    ei = power_law_graph(2500, 15000, seed=3)
+    rng = np.random.default_rng(5)
+    # top-2 routing of 65,536 tokens over 16 experts (Phi-3.5-MoE), with
+    # a per-expert bias so that some experts are hot
+    logits = rng.normal(size=(65536, 16)) + rng.normal(scale=0.5, size=16)
+    trace = np.argsort(logits, axis=1)[:, -2:]
+    gain = ("gain_table", "gain_stream", "gain_table_one", "gain_stream_one")
+    rating = ("rating_segment_sum", "rating_segment_sum_batch")
+    # (what, run, its hypergraph, k, eps, kernels it must launch); "fast"
+    # (the experts) coarsens on the host as the reference's
+    # multilevel_partition does, so only its refinement reaches the card
+    runs = (
+        ("dlrm rows", lambda: placement.partition_embedding_rows(
+            rows, len(uniq), SUBSTRATE_SHARDS, quality="balanced",
+            device=dev),
+         lambda: placement.set_hypergraph(rows, len(uniq)), SUBSTRATE_SHARDS,
+         0.10, (rating,)),
+        ("gnn mesh", lambda: placement.partition_graph_for_mesh(
+            ei, 2500, 16, quality="balanced", device=dev),
+         lambda: placement.graph_hypergraph(ei, 2500), 16, 0.06, (rating,)),
+        ("moe experts", lambda: placement.place_experts(trace, 4,
+                                                        device=dev),
+         lambda: placement.set_hypergraph(trace, 16), 4, 0.25, ()),
+    )
+    t_all = time.perf_counter()
+    for what, run, build_hg, k, eps, must in runs:
+        hg = build_hg()
+        # LP gathers its gains through #1/#2/#5/#6 where a level carries
+        # the dense incidence layout; hub vertices (a row that most queries
+        # touch) make it exceed its size cap, and LP then assembles the
+        # gains with plain segment sums, as the reference's routing does
+        layout = hg.arrays(device=dev).incident is not None
+        if layout:
+            must = must + (gain,)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        cut, balanced, bw_max, cap = host_cut_and_balance(
+            hg, res.assignment, k, eps)
+        print(f"[substrate] placement {what}: n {hg.n} m {hg.m} pins "
+              f"{hg.num_pins} max degree {hg.max_degree()} k {k} eps {eps}, "
+              f"dense incidence layout {'yes' if layout else 'no'}: wall_s "
+              f"{wall!r} cut "
+              f"{res.cut!r} host cut {cut!r} random cut {res.random_cut!r} "
+              f"reduction {res.reduction!r} max block {bw_max!r} cap "
+              f"{cap!r}; launches "
+              f"{ {n: c for n, c in counts.items() if c} }")
+        if cut != res.cut or not balanced or not res.reduction > 0:
+            raise AssertionError(f"placement {what}: host cut {cut} vs "
+                                 f"{res.cut}, balanced={balanced}, "
+                                 f"reduction {res.reduction}")
+        _phase_counts(total, counts, f"placement {what}", must)
+    print(f"[substrate] placement: Q {SUBSTRATE_QUERIES} queries touching "
+          f"{len(uniq)} rows; the three runs {time.perf_counter() - t_all!r}"
+          f" s")
+    torch.cuda.empty_cache()
+
+
+def _substrate_gnn(dev) -> None:
+    """(c) The GNN zoo at its published widths: full_graph_sm (against
+    the CPU run of the same module) and molecule for each arch, and
+    graphsage-reddit's minibatch regime through ``NeighborSampler``."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.data.graphs import (full_graph_batch, molecule_batch,
+                                         power_law_graph)
+    from repro_torch.data.sampler import NeighborSampler
+    from repro_torch.models import gnn
+    from repro_torch.models.layers import batch_to
+    shapes = {s.name: s.p() for s in GNN_SHAPES}
+    sm, mol = shapes["full_graph_sm"], shapes["molecule"]
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def timed(fn, batch):
+        out = fn(batch)
+        return out, _time_ms(lambda: fn(batch), iters=5, warmup=1)
+
+    with torch.no_grad():
+        for arch in GNN_ZOO:
+            cfg = registry.get_arch(arch).config
+            fe = gnn._edge_feat_dim(cfg)
+            model = gnn.init_params(cfg, gen, sm["d_feat"], device=dev)
+            host = full_graph_batch(sm["n_nodes"], sm["n_edges"],
+                                    sm["d_feat"], cfg.n_classes, seed=0,
+                                    need_edge_feat=fe)
+            out, ms = timed(model.full_graph_logits, batch_to(host, dev))
+            want = copy.deepcopy(model).cpu().full_graph_logits(
+                batch_to(host, torch.device("cpu")))
+            torch.testing.assert_close(out.cpu(), want, rtol=SUBSTRATE_RTOL,
+                                       atol=SUBSTRATE_ATOL)
+            mmodel = gnn.init_params(cfg, gen, cfg.d_feat, device=dev)
+            mhost = molecule_batch(mol["batch"], mol["n_nodes"],
+                                   mol["n_edges"], cfg.d_feat,
+                                   cfg.n_classes, seed=1, need_edge_feat=fe)
+            mout, mms = timed(mmodel.molecule_logits, batch_to(mhost, dev))
+            if not (bool(torch.isfinite(out).all())
+                    and bool(torch.isfinite(mout).all())):
+                raise AssertionError(f"gnn {arch}: non-finite logits")
+            print(f"[substrate] gnn {arch} ({cfg.n_layers} layers, d "
+                  f"{cfg.d_hidden}): full_graph_sm {tuple(out.shape)} ms "
+                  f"{ms!r}, equal to the CPU run (rtol {SUBSTRATE_RTOL}, "
+                  f"atol {SUBSTRATE_ATOL}; max abs diff "
+                  f"{float((out.cpu() - want).abs().max())!r}); molecule "
+                  f"{tuple(mout.shape)} ms {mms!r}")
+        cfg = registry.get_arch("graphsage-reddit").config
+        mb = shapes["minibatch_lg"]
+        t0 = time.perf_counter()
+        ei = power_law_graph(REDDIT_NODES, REDDIT_EDGES, seed=0)
+        rng = np.random.default_rng(0)
+        feats = rng.normal(size=(REDDIT_NODES, cfg.d_feat)).astype(
+            np.float32)
+        labels = rng.integers(0, cfg.n_classes, REDDIT_NODES).astype(
+            np.int32)
+        smp = NeighborSampler(ei, REDDIT_NODES, feats, labels,
+                              fanout=cfg.sample_sizes, seed=0)
+        t1 = time.perf_counter()
+        host = smp.batch(mb["batch_nodes"])
+        t2 = time.perf_counter()
+        host.pop("labels")
+        model = gnn.init_params(cfg, gen, cfg.d_feat, device=dev)
+        out, ms = timed(model.minibatch_logits, batch_to(host, dev))
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("gnn graphsage-reddit minibatch: "
+                                 "non-finite logits")
+        print(f"[substrate] gnn graphsage-reddit minibatch: "
+              f"{REDDIT_NODES} nodes, {ei.shape[1]} edges (cut: a tenth "
+              f"of minibatch_lg's {mb['n_edges']}), fanout "
+              f"{cfg.sample_sizes}, {mb['batch_nodes']} roots: graph and "
+              f"sampler {t1 - t0!r} s, batch {t2 - t1!r} s, logits "
+              f"{tuple(out.shape)} ms {ms!r}")
+    torch.cuda.empty_cache()
+
+
+def run_substrate_path(must_launch):
+    """Phase ``substrate``: the placement substrate's serving path
+    (``repro_torch.models``, ``repro_torch.apps.placement``) at its
+    published widths: (a) DLRM, (b) placement, (c) the GNN zoo.  Returns
+    the launches of its main paths (the comparisons' own launches left
+    out)."""
+    import torch
+    dev = torch.device("cuda")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is enabled; the port stays in f32")
+    total = {}
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    _substrate_dlrm(dev, total)
+    t1 = time.perf_counter()
+    _substrate_placement(dev, total)
+    t2 = time.perf_counter()
+    _substrate_gnn(dev)
+    t3 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[substrate] wall_s dlrm {t1 - t0!r} placement {t2 - t1!r} gnn "
+          f"{t3 - t2!r} total {t3 - t0!r}; launches "
+          f"{ {n: c for n, c in total.items() if c} }; device memory "
+          f"allocated before {before!r} B, after {torch.cuda.memory_allocated()!r}"
+          f" B, reserved after {torch.cuda.memory_reserved()!r} B")
+    missing = [n for n in must_launch if total.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"substrate path: kernels never launched: "
+                             f"{missing}")
+    return total
+
+
 _COST_CHILD = """
 import json, sys, time
 import torch
@@ -2869,7 +3207,8 @@ def main() -> int:
     if "memetic" in phases:
         add(run_memetic_path("ibm08_like", 64, off_cut,
                              ("rating_segment_sum", "gain_stream"),
-                             ("rating_segment_sum_batch",)))
+                             ("rating_segment_sum_batch",),
+                             beta=MEMETIC_BETA))
     if "cli" in phases:
         for design, k, must in (("ibm08_like", 64, ("gain_stream_one",)),
                                 ("ibm01_like", 16, ("gain_table_one",))):
@@ -2881,7 +3220,7 @@ def main() -> int:
         # unless they launch it
         add(run_sched_path("ibm01_like", 16, ("gain_table",
                                               "rating_segment_sum"),
-                           ("rating_segment_sum_batch",)))
+                           ("rating_segment_sum_batch",), beta=SCHED_BETA))
     if "instances" in phases:
         add(run_instances_path(("gain_table", "rating_segment_sum")))
     if "incremental" in phases:
@@ -2892,6 +3231,8 @@ def main() -> int:
         add(run_service_path(("gain_table", "gain_stream",
                               "rating_segment_sum",
                               "rating_segment_sum_batch")))
+    if "substrate" in phases:
+        add(run_substrate_path(("embedding_bag",)))
     if "--profile" in sys.argv[1:]:
         for design, k in (("ibm08_like", 64), ("ibm01_like", 16)):
             profile_main_path(design, k)

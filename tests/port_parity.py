@@ -55,3 +55,15 @@ def assert_bit_equal(got, want, what: str = "") -> None:
     assert got.shape == want.shape, (what, got.shape, want.shape)
     assert np.array_equal(got, want), (
         what, int((got != want).sum()), "elements differ")
+
+
+def compact_rows(n_queries: int, seed: int = 0):
+    """The rows a click batch of the SMOKE DLRM touches, renumbered
+    0..n_rows-1: the query-row matrix and n_rows (the port's
+    ``click_batch``, bit-equal to the reference's)."""
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.data.recsys import click_batch
+    idx = click_batch(SMOKES["dlrm-mlperf"], n_queries,
+                      seed=seed)["sparse_idx"]
+    uniq, inv = np.unique(idx, return_inverse=True)
+    return inv.reshape(idx.shape), len(uniq)

@@ -782,6 +782,64 @@ def test_checkpoint_restore_onto_the_card(card, async_save, tmp_path):
 
 
 # --------------------------------------------------------------------------
+# the substrate: DLRM's retrieval through #9, placement on the card
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_dlrm_retrieval_bag_is_kernel_bits_on_card(card):
+    """``DLRM.retrieval_scores`` at the SMOKE width: its user bag goes
+    through #9 (one launch a call) and the scores equal, bit for bit, the
+    same function with the bag summed in bag order by plain torch."""
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.data.recsys import click_batch
+    from repro_torch.models import dlrm
+    from repro_torch.models.layers import batch_to
+    cfg = SMOKES["dlrm-mlperf"]
+    model = dlrm.init_params(cfg, torch.Generator(card).manual_seed(3),
+                             device=card)
+    host = click_batch(cfg, 1, seed=3)
+    host["cand_idx"] = np.random.default_rng(3).integers(
+        0, cfg.total_rows, 4096).astype(np.int32)
+    batch = batch_to({k: host[k] for k in ("dense", "sparse_idx",
+                                           "cand_idx")}, card)
+    before = embedding_bag.embedding_bag.launches
+    with torch.no_grad():
+        got = model.retrieval_scores(batch)
+        tables = model.tables.detach()
+        acc = torch.zeros((1, cfg.embed_dim), device=card)
+        for j in range(cfg.n_sparse):
+            acc = acc + tables[batch["sparse_idx"][:, j].long()]
+        user = model.bot(batch["dense"]) + acc
+        want = tables[batch["cand_idx"].long()] @ user[0]
+    assert embedding_bag.embedding_bag.launches == before + 1
+    assert got.shape == (4096,) and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_placement_cut_equals_host_recount_on_card(card):
+    """``partition_graph_for_mesh`` at n 600 on the card (``balanced``:
+    ``impart_partition``; and ``fast``): each reported cut equals the
+    host's count of distinct node pairs split across devices, and every
+    device holds at most its balance cap."""
+    from repro_torch.apps import placement
+    from repro_torch.data.graphs import power_law_graph
+    n, k, eps = 600, 8, 0.06
+    ei = power_law_graph(n, 2400, seed=5)
+    for quality in ("balanced", "fast"):
+        res = placement.partition_graph_for_mesh(ei, n, k, eps=eps, seed=1,
+                                                 quality=quality, device=card)
+        part = res.assignment
+        src, dst = ei
+        keep = src != dst
+        pairs = {(min(a, b), max(a, b)) for a, b in zip(src[keep], dst[keep])}
+        host_cut = sum(part[a] != part[b] for a, b in pairs)
+        assert res.cut == float(host_cut), quality
+        assert np.bincount(part, minlength=k).max() <= \
+            (1 + eps) * np.ceil(n / k), quality
+        assert 0 < res.reduction < 1, quality
+
+
+# --------------------------------------------------------------------------
 # the import guard (runs everywhere)
 # --------------------------------------------------------------------------
 def _imported_modules(path: Path):
