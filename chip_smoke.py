@@ -58,7 +58,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    shape bucket on ``grid=(1024, 4096, 16384, 65536)``, every request
    bit-equal to its solo ``impart_partition``; one ``refine_grouped``
    call alone, which must launch the ``table`` gain kernel; and the
-   grouped bandit's traces replayed grouped and solo, bit for bit;
+   grouped bandit on the stream's first ``INSTANCE_BANDIT`` (2) requests,
+   its traces replayed grouped and solo, bit for bit;
 12. incremental repartitioning (``incremental_partition``, DESIGN.md
    §14) on ``ibm08_like`` at k=64 with the knobs of the reference's
    incremental benchmark (alpha 4, lp_iters 8, migration_frac 0.15,
@@ -88,7 +89,20 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    into 4 pods) on the card, each cut equal to its host recount and
    balanced; the GNN zoo at its published widths on full_graph_sm
    (equal to a CPU run), molecule and graphsage-reddit's sampled
-   minibatch.
+   minibatch;
+15. LM serving (``repro_torch.models.transformer``,
+   ``repro_torch.serve.ServeSession``; no kernel of the port on its
+   path): (i) codeqwen1.5-7b and phi3.5-moe-42b-a6.6b at full width
+   with 2 layers in f32, prefill logits and decode steps on the card
+   equal to the same module on the CPU; (ii) greedy ``generate`` of that
+   dense model equal to prefill's argmax at every generated position;
+   (iii) each in bf16 at its published widths (codeqwen whole, phi with
+   16 of its 32 layers; ``LM_RUNS``): ``generate`` on a ``TokenStream``
+   prompt, every logit finite and each step's cache row written at
+   ``pos`` with later rows zero, with time to first token, decode ms a
+   step, tokens/s beside the step's byte bound; ``score`` with [B] finite
+   values, its ms and TFLOP/s (``launch.analytic.model_flops``); the
+   peak device memory of each.
 
 The kernel phase also holds the connectivity and cut kernels (#7/#8, at
 the reference's sweeps and at ``CUT_ODD``'s odd shapes) and the
@@ -104,7 +118,7 @@ its cut once more on the card through ``ops.connectivity`` and
 the ops route), which must agree with the host.
 
 ``--phases`` takes a comma list of
-``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances,incremental,service,substrate``
+``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances,incremental,service,substrate,lm``
 (default: all; empty for none) for runs that debug one phase; the kernels line is only printed
 when every phase ran.  ``--repair-cost=DIR`` then times the static
 memetic run of the ``sched`` phase with its mutation seconds on the
@@ -168,7 +182,7 @@ KERNEL_META = {
                       "src/repro/kernels/embedding_bag.py:66"),
 }
 PHASES = ("kernels", "cardtests", "parity", "off", "memetic", "cli", "ops",
-          "sched", "instances", "incremental", "service", "substrate")
+          "sched", "instances", "incremental", "service", "substrate", "lm")
 
 # the largest level FM refines (``refine.refine_population``'s default)
 FM_NODE_LIMIT = 4096
@@ -1566,13 +1580,15 @@ def run_sched_path(design: str, k: int, must_launch, cohort_launch=(),
 
 # the instance phase: the reference service benchmark's request stream
 # (``BENCH_service.json``: 12 requests, alpha 4, lp_iters 8), of which
-# (a) groups the first INSTANCE_STREAM and (d) the first 4, to keep the
-# script inside its time limit beside the service phase (the 12 took
-# 770 s grouped and solo on the H100, and the first 6 191.6 s grouped,
-# almost all of it in each request's own recombinations and mutations),
-# and the serving buckets of its grid
+# (a) groups the first INSTANCE_STREAM and (d) the first INSTANCE_BANDIT,
+# to keep the script inside its time limit beside the service, substrate
+# and lm phases (the 12 took 770 s grouped and solo on the H100, and the
+# first 6 191.6 s grouped, almost all of it in each request's own
+# recombinations and mutations; (d) on the first 4 took 65.0 s live and
+# 60.9 s replayed), and the serving buckets of its grid
 INSTANCE_REQUESTS = 6
 INSTANCE_STREAM = 3
+INSTANCE_BANDIT = 2
 INSTANCE_GRID = (1024, 4096, 16384, 65536)
 INSTANCE_ISPD = (("ibm01_like", 16), ("ibm02_like", 12), ("ibm03_like", 32))
 # child processes that run the stream's solo comparisons beside the
@@ -1712,8 +1728,8 @@ def run_instances_path(must_launch):
     ``refine_grouped`` call on the first levels with n <= 4,096 of the
     three requests' hierarchies, which must launch the ``table`` gain
     kernel and equal each entry's solo ``refine_population``; (d) the
-    grouped bandit live on the first 4 requests of (a), each request's
-    trace replayed through the grouped driver and solo (in child
+    grouped bandit live on the first ``INSTANCE_BANDIT`` requests of (a),
+    each request's trace replayed through the grouped driver and solo (in child
     processes beside the grouped replay), both bit-equal to the live
     run.  Returns the launches of (a), (b) and (d) and of their cut
     checks."""
@@ -1837,9 +1853,9 @@ def run_instances_path(must_launch):
                              "launched no gain_table")
 
     # (d) the grouped bandit, replayed grouped and solo (children)
-    bandit = [dict(kw, sched="bandit") for kw in kws[:4]]
+    bandit = [dict(kw, sched="bandit") for kw in kws[:INSTANCE_BANDIT]]
     live, wall, counts = timed(lambda: impart_partition_instances(
-        hgs[:4], [ImpartConfig(**kw) for kw in bandit],
+        hgs[:INSTANCE_BANDIT], [ImpartConfig(**kw) for kw in bandit],
         grid=list(INSTANCE_GRID), device="cuda"))
     _add_counts(total, counts)
     _add_counts(path_total, counts)
@@ -1848,7 +1864,7 @@ def run_instances_path(must_launch):
     children = _SoloChildren(list(enumerate(replay_kws)), 2, "bandit")
     try:
         again, wall_r, _ = timed(lambda: impart_partition_instances(
-            hgs[:4], [ImpartConfig(**dict(
+            hgs[:INSTANCE_BANDIT], [ImpartConfig(**dict(
                 kw, sched_replay=SchedulerTrace.from_json(tr)))
                 for kw, tr in zip(bandit, traces)],
             grid=list(INSTANCE_GRID), device="cuda"))
@@ -2786,6 +2802,295 @@ def run_substrate_path(must_launch):
     return total
 
 
+# the lm phase: LM serving (``ServeSession``) at the published widths in
+# bf16.  Per architecture: (layers kept, None for all; generate batch,
+# prompt length, new tokens, max_seq; score batch, score length).
+# Phi-3.5-MoE keeps 16 of its 32 layers: all 32 need 84 GB in bf16, more
+# than the card holds; every layer is a MoE layer, so 16 hold every kind.
+# Its score batch keeps B * S a multiple of the 256 MoE token groups.
+LM_RUNS = {
+    "codeqwen1.5-7b": (None, 16, 448, 64, 512, 4, 2048),
+    "phi3.5-moe-42b-a6.6b": (16, 16, 192, 64, 256, 4, 1024),
+}
+# gates (i) and (ii): each architecture at full width with 2 layers in
+# f32, on the card and on the CPU; a prefill of 2 x 256 tokens (phi's MoE
+# then runs 256 groups of 2 tokens at capacity 1, so full experts drop
+# tokens) and 4 decode steps; (ii) generates 16 tokens after a 16-token
+# prompt.  f32 sums over up to 26,880 products add in another order on
+# the two devices: about 1e-5 of a logit of about 1 at these widths, so
+# rtol and atol 1e-4
+LM_GATE_LAYERS, LM_GATE_BATCH, LM_GATE_SEQ, LM_GATE_STEPS = 2, 2, 256, 4
+LM_GATE_PROMPT, LM_GATE_GEN = 16, 16
+LM_GATE_RTOL, LM_GATE_ATOL = 1e-4, 1e-4
+# decode steps of each bf16 model traced with torch.profiler
+LM_TRACE_STEPS = 2
+# H100 SXM (NVIDIA data sheet): dense bf16 tensor-core rate at 700 W
+BF16_OPS_PER_S = 989e12
+
+
+def _lm_gates(aid: str, dev) -> None:
+    """(i) ``aid`` at full width, ``LM_GATE_LAYERS`` layers, f32: prefill
+    logits and ``LM_GATE_STEPS`` decode steps on the card equal the same
+    module on the CPU; (ii) for a dense model, greedy ``generate`` on the
+    card equals the argmax of ``prefill_logits`` over [prompt |
+    generated] at every generated position."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeSession
+    cfg = dataclasses.replace(registry.get_arch(aid).config,
+                              n_layers=LM_GATE_LAYERS, dtype="float32")
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, torch.Generator(dev).manual_seed(1),
+                                    device=dev)
+    cpu = transformer.Transformer(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        LM_GATE_BATCH, LM_GATE_SEQ)).astype(np.int32))
+    tol = dict(rtol=LM_GATE_RTOL, atol=LM_GATE_ATOL)
+    got = transformer.prefill_logits(model, toks.to(dev)).cpu()
+    want = transformer.prefill_logits(cpu, toks)
+    torch.testing.assert_close(got, want, **tol)
+    diffs = [float((got - want).abs().max())]
+    cache = transformer.init_cache(cfg, LM_GATE_BATCH, LM_GATE_STEPS, dev)
+    cache_cpu = transformer.init_cache(cfg, LM_GATE_BATCH, LM_GATE_STEPS,
+                                       "cpu")
+    for i in range(LM_GATE_STEPS):
+        got, cache = transformer.decode_step(model, cache,
+                                             toks[:, i:i + 1].to(dev), i)
+        want, cache_cpu = transformer.decode_step(cpu, cache_cpu,
+                                                  toks[:, i:i + 1], i)
+        torch.testing.assert_close(got.cpu(), want, **tol)
+        diffs.append(float((got.cpu() - want).abs().max()))
+    for name in ("k", "v"):
+        torch.testing.assert_close(cache[name].cpu(), cache_cpu[name], **tol)
+    print(f"[lm] gate (i) {aid} at full width, {cfg.n_layers} layers, f32 "
+          f"(TF32 off): prefill {LM_GATE_BATCH}x{LM_GATE_SEQ} and "
+          f"{LM_GATE_STEPS} decode steps equal the CPU run (rtol "
+          f"{LM_GATE_RTOL}, atol {LM_GATE_ATOL}); max abs diff prefill "
+          f"{diffs[0]!r}, decode {max(diffs[1:])!r}")
+    if not cfg.moe_experts:
+        sess = ServeSession(cfg=cfg, params=model, batch=LM_GATE_BATCH,
+                            max_seq=LM_GATE_PROMPT + LM_GATE_GEN)
+        prompt = toks[:, :LM_GATE_PROMPT].to(dev)
+        gen, _ = sess.generate(prompt, LM_GATE_GEN)
+        greedy = transformer.prefill_logits(
+            model, torch.cat([prompt, gen], dim=1)).argmax(dim=-1)
+        picks = greedy[:, LM_GATE_PROMPT - 1:-1].to(torch.int32)
+        if not torch.equal(picks, gen):
+            raise AssertionError(f"lm gate (ii) {aid}: greedy decode "
+                                 f"differs from prefill's argmax at "
+                                 f"{int((picks != gen).sum())} positions")
+        print(f"[lm] gate (ii) {aid} f32 on the card: greedy generate of "
+              f"{LM_GATE_GEN} tokens after {LM_GATE_PROMPT} equals "
+              f"prefill's argmax at every generated position")
+    del model, cpu, cache, cache_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lm] gates {aid}: {time.perf_counter() - t0!r} s")
+
+
+class _DecodeLog:
+    """Wrap ``transformer.decode_step`` as ``ServeSession.generate`` calls
+    it: after each step record a CUDA event, and fold into device flags
+    (read once at the end, so no step waits) that its logits are finite,
+    that it wrote row ``pos`` of both caches (every layer, batch row and
+    KV head holds a non-zero) and that row ``pos + 1`` is still zero;
+    after the first step, that every row past it is zero.  ``restore``
+    undoes it."""
+
+    def __init__(self, dev):
+        import torch
+        from repro_torch.models import transformer
+        self.module, self.fn = transformer, transformer.decode_step
+        self.events = []
+        self.flags = {name: torch.ones((), dtype=torch.bool, device=dev)
+                      for name in ("finite", "written", "later rows zero")}
+
+        def wrapped(model, cache, tokens, pos):
+            logits, cache = self.fn(model, cache, tokens, pos)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            self.flags["finite"] &= torch.isfinite(logits).all()
+            for c in (cache["k"], cache["v"]):
+                self.flags["written"] &= (c[:, :, pos] != 0).any(-1).all()
+                later = c[:, :, pos + 1:] if pos == 0 else c[:, :, pos + 1:
+                                                              pos + 2]
+                self.flags["later rows zero"] &= ~later.any()
+            return logits, cache
+        transformer.decode_step = wrapped
+
+    def restore(self) -> None:
+        self.module.decode_step = self.fn
+
+    def failed(self) -> list:
+        return [name for name, ok in self.flags.items() if not bool(ok)]
+
+
+def _lm_trace_decode(aid: str, model, cfg, tok, max_seq: int, dev) -> None:
+    """``LM_TRACE_STEPS`` decode steps at ``generate``'s batch and
+    ``max_seq`` (a fresh cache, after one untraced step) under
+    ``torch.profiler``: the device's busy share of the traced wall, the
+    kernels a step, and the kernels that take most of the time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer
+    cache = transformer.init_cache(cfg, tok.shape[0], max_seq, dev)
+    transformer.decode_step(model, cache, tok, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for pos in range(1, 1 + LM_TRACE_STEPS):
+            transformer.decode_step(model, cache, tok, pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _kernel_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e6
+    n = LM_TRACE_STEPS
+    print(f"[lm] {aid} decode traced ({n} steps): wall {wall / n * 1e3!r} ms "
+          f"a step, device busy {busy / n * 1e3!r} ms a step, busy share "
+          f"{busy / wall!r}, {sum(r[2] for r in rows) / n!r} kernels a step")
+    for dev_us, key, count in sorted(rows, reverse=True)[:6]:
+        print(f"[lm] {aid} decode {dev_us / n / 1e3:.3f} ms a step  "
+              f"{count // n} calls  {key[:90]}")
+    del cache
+
+
+def _lm_serve(aid: str, run, dev) -> None:
+    """(iii) ``aid`` at its published widths in bf16 (``run`` from
+    ``LM_RUNS``): ``ServeSession.generate`` on a ``TokenStream`` prompt
+    with each decode step checked (``_DecodeLog``) and timed, the share
+    of generated tokens that prefill's argmax picks, and ``score``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ArchSpec, ShapeSpec
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.launch.analytic import model_flops
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeSession
+    layers, gb, s0, steps, max_seq, sb, ss = run
+    full = registry.get_arch(aid).config
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                    device=dev)
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.nbytes for p in model.parameters())
+    cut = ("not cut" if layers is None else
+           f"cut: {layers} of its {full.n_layers} layers")
+    print(f"[lm] {aid}: d {cfg.d_model}, {cfg.n_heads} heads, kv "
+          f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, experts "
+          f"{cfg.moe_experts} (top-{cfg.moe_top_k if cfg.moe_experts else 0}"
+          f"), {cfg.dtype}; {cfg.n_layers} layers ({cut}); {params} "
+          f"parameters, {weight_bytes / 1e9!r} GB; init "
+          f"{time.perf_counter() - t0!r} s")
+    prompt = torch.from_numpy(TokenStream(cfg.vocab, gb, s0, seed=0)
+                              .next_batch(0)["tokens"]).to(dev)
+    sess = ServeSession(cfg=cfg, params=model, max_seq=max_seq, batch=gb)
+    log = _DecodeLog(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    try:
+        torch.cuda.synchronize()
+        start.record()
+        gen, last = sess.generate(prompt, steps)
+        torch.cuda.synchronize()
+    finally:
+        log.restore()
+    failed = log.failed()
+    if (failed or len(log.events) != s0 + steps
+            or tuple(gen.shape) != (gb, steps)
+            or not bool(torch.isfinite(last).all())):
+        raise AssertionError(f"lm {aid} generate: checks failed {failed}, "
+                             f"{len(log.events)} steps, {tuple(gen.shape)}")
+    ttft = start.elapsed_time(log.events[s0 - 1])
+    step_ms = log.events[s0 - 1].elapsed_time(log.events[-1]) / steps
+    cache_bytes = (2 * cfg.n_layers * gb * max_seq * cfg.n_kv_heads
+                   * cfg.d_head * model.embed.element_size())
+    # a step reads every weight but the embedding table, of which it
+    # gathers gb rows, and the whole cache
+    step_bytes = (weight_bytes - model.embed.nbytes
+                  + gb * model.embed[0].nbytes + cache_bytes)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[lm] {aid} generate: batch {gb}, prompt {s0} (TokenStream seed "
+          f"0), {steps} new, max_seq {max_seq}, cache {cache_bytes / 1e9!r} "
+          f"GB: time to first token {ttft!r} ms (the prompt's {s0} decode "
+          f"steps), decode {step_ms!r} ms a step over the {steps} generated "
+          f"steps (CUDA events; each step's checks included), "
+          f"{gb * 1e3 / step_ms!r} tokens/s; byte bound {bound_ms!r} ms a "
+          f"step ({step_bytes / 1e9!r} GB at {HBM_BYTES_PER_S / 1e12} TB/s), "
+          f"{bound_ms / step_ms!r} of it; every logit finite, each step "
+          f"wrote the cache at pos and left later rows zero")
+    _lm_trace_decode(aid, model, cfg, prompt[:, :1], max_seq, dev)
+    full_seq = torch.cat([prompt, gen], dim=1)
+    greedy = transformer.prefill_logits(model, full_seq).argmax(dim=-1)
+    same = (greedy[:, s0 - 1:-1].to(torch.int32) == gen).float().mean()
+    print(f"[lm] {aid} generated tokens that prefill's argmax over "
+          f"[prompt | generated] also picks (bf16, no gate): {float(same)!r}")
+    del greedy
+    stoks = torch.from_numpy(TokenStream(cfg.vocab, sb, ss, seed=1)
+                             .next_batch(0)["tokens"]).to(dev)
+    scores = sess.score(stoks)
+    if tuple(scores.shape) != (sb,) or not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"lm {aid} score: {tuple(scores.shape)}, "
+                             f"finite {bool(torch.isfinite(scores).all())}")
+    ms = _time_ms(lambda: sess.score(stoks), iters=2, warmup=0)
+    shape = ShapeSpec("score", "prefill", (("seq_len", ss),
+                                           ("global_batch", sb)))
+    flops = model_flops(ArchSpec(aid, cfg, (shape,), cfg), "score")
+    rate = flops / (ms / 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[lm] {aid} score: batch {sb} x {ss} tokens (TokenStream seed 1) "
+          f"-> {tuple(scores.shape)} finite, {ms!r} ms (CUDA events, mean of "
+          f"2 after one call), {flops / 1e12!r} TFLOP (model_flops, "
+          f"prefill) = {rate / 1e12!r} TFLOP/s, {rate / BF16_OPS_PER_S!r} of "
+          f"the {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 dense peak; peak "
+          f"device memory {peak!r} GB")
+    del model, sess, gen, last, prompt, stoks, scores, full_seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lm] {aid}: {time.perf_counter() - t0!r} s")
+
+
+def run_lm_path() -> None:
+    """Phase ``lm``: LM serving (``repro_torch.models.transformer``,
+    ``repro_torch.serve.ServeSession``) on the card.  Gates (i) and (ii)
+    for both architectures, then (iii) each at its published widths in
+    bf16, one model at a time.  No kernel of the port lies on this path;
+    the launch counts are read to show it."""
+    import torch
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is enabled; the port stays in f32")
+    before = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for aid in LM_RUNS:
+        _lm_gates(aid, dev)
+    t1 = time.perf_counter()
+    for aid, run in LM_RUNS.items():
+        _lm_serve(aid, run, dev)
+    t2 = time.perf_counter()
+    counts = ops.launch_counts()
+    print(f"[lm] wall_s gates {t1 - t0!r} serve {t2 - t1!r} total "
+          f"{t2 - t0!r}; kernel launches "
+          f"{ {n: c for n, c in counts.items() if c} }; device memory "
+          f"allocated before {before!r} B, after "
+          f"{torch.cuda.memory_allocated()!r} B")
+
+
 _COST_CHILD = """
 import json, sys, time
 import torch
@@ -3097,6 +3402,22 @@ def profile_main_path(design: str, k: int, eps: float = 0.03,
           + ", ".join(f"{n} {v!r} s" for n, v in spans.items()))
 
 
+def _kernel_rows(prof) -> list:
+    """(device us, name, calls) of each kernel in a ``torch.profiler``
+    profile: kernels only, since an operator's device time repeats its
+    kernels'."""
+    import torch
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, ev.key, ev.count))
+    return rows
+
+
 def trace_main_path(design: str, k: int, eps: float = 0.03,
                     device: str = "cuda") -> None:
     """``torch.profiler`` trace of one main-path run: the device's busy
@@ -3116,15 +3437,7 @@ def trace_main_path(design: str, k: int, eps: float = 0.03,
         impart_partition(hg, cfg, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        # kernels only: an operator's device time repeats its kernels'
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us, ev.key, ev.count))
+    rows = _kernel_rows(prof)
     busy = sum(r[0] for r in rows) / 1e6
     print(f"[trace] {design} k={k} wall_s (traced) {wall!r} device busy s "
           f"{busy!r} busy share {busy / wall!r}")
@@ -3233,6 +3546,8 @@ def main() -> int:
                               "rating_segment_sum_batch")))
     if "substrate" in phases:
         add(run_substrate_path(("embedding_bag",)))
+    if "lm" in phases:
+        run_lm_path()
     if "--profile" in sys.argv[1:]:
         for design, k in (("ibm08_like", 64), ("ibm01_like", 16)):
             profile_main_path(design, k)

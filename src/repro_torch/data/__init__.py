@@ -1,2 +1,4 @@
-"""Synthetic circuit-hypergraph generators (numpy, shared seeds with
+"""Synthetic data of the port (counterpart of ``repro.data``): the
+circuit-hypergraph generators, graphs, click logs, the neighbour
+sampler and the LM token stream (numpy, shared seeds with
 ``repro.data``)."""

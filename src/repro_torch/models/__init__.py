@@ -1,3 +1,3 @@
-"""The substrate's models (counterpart of ``repro.models``): so far the
-layers DLRM and the GNN zoo use, DLRM and the GNN zoo."""
-from . import layers, gnn, dlrm
+"""The substrate's models (counterpart of ``repro.models``): the shared
+layers, DLRM, the GNN zoo, and the LM (attention, MoE, transformer)."""
+from . import layers, gnn, dlrm, attention, moe, transformer

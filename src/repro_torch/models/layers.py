@@ -1,17 +1,18 @@
-"""Shared neural building blocks of DLRM and the GNN zoo (port of the
-parts of ``repro.models.layers`` those models use).
+"""Shared neural building blocks of the substrate's models (port of
+``repro.models.layers``): the dense layers of DLRM and the GNN zoo, and
+the LM half (``rms_norm``, the rotary embeddings, ``cross_entropy``).
 
 The reference keeps parameters in dicts of arrays; here they live in
 ``nn.Module``s with the reference's layouts (a dense weight is
 ``[fan_in, fan_out]`` and applied as ``x @ w + b``), so a reference
 parameter dict copies over leaf by leaf (``MLP.load_reference``).
 ``constrain`` and ``with_grad_sharding`` are sharding hints with no
-single-device meaning and are left out; ``rms_norm`` and the rotary
-embeddings come with the LM models.
+single-device meaning and are left out.  The LM functions compute in
+f32 and cast back to their input's dtype, as the reference's do.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,3 +84,56 @@ class MLP(nn.Module):
                 np.array(params[f"{self.prefix}{i}"])))
             self.biases[i].copy_(torch.from_numpy(
                 np.array(params[f"b{self.prefix}{i}"])))
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)
+            * scale.to(torch.float32)).to(x.dtype)
+
+
+# ---- rotary position embeddings ------------------------------------------
+def rope_frequencies(d_head: int, theta: float,
+                     device: Optional[torch.device] = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def rope_cos_sin(positions: torch.Tensor, d_head: int, theta: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rotation of ``positions`` [..., S]: (cos, sin) [..., S, 1,
+    dh/2] in f32, shared by every head and layer of one forward."""
+    freqs = rope_frequencies(d_head, theta, positions.device)  # [dh/2]
+    angles = positions[..., None].to(torch.float32) * freqs  # [..., S, dh/2]
+    angles = angles[..., None, :]                         # [..., S, 1, dh/2]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+           ) -> torch.Tensor:
+    """Rotate the two halves of each head of x [..., S, H, dh]
+    (``x[..., :dh/2]`` with ``x[..., dh/2:]``, not interleaved pairs) by
+    ``rope_cos_sin``'s angles, in f32; cast back to x's dtype."""
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: [..., S, H, dh]; positions broadcastable to [..., S]."""
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if valid is not None:
+        valid = valid.to(torch.float32)
+        return (nll * valid).sum() / valid.sum().clamp(min=1)
+    return nll.mean()

@@ -1,6 +1,6 @@
-"""The partition service and its fault handling (counterpart of
-``repro.serve``).  The reference's decode loop (``ServeSession``)
-belongs to the model substrate and is not part of this package."""
+"""Serving (counterpart of ``repro.serve``): the LM decode loop
+(``ServeSession``), and the partition service and its fault handling."""
+from .decode_loop import ServeSession
 from .faults import FaultEvent, FaultPlan, InjectedCrash, fault_plan_env
 from .partition_service import (PartitionRequest, PartitionResult,
                                 PartitionService, serve_buckets,

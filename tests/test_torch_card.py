@@ -26,7 +26,9 @@ runs on the card must give the same bits (their sums take fixed-order
 paths), and an integer-weighted level must take none of those paths.
 The partition service on the card is held to its solo runs bit for bit,
 through a device loss too, and checkpoints round-trip CUDA tensors
-exactly.
+exactly.  The LM's SMOKE models (f32, TF32 off) are held to their CPU
+runs with rtol and atol 1e-5 (f32 sums over widths of 64 to 256 in
+another order on the card), and the MoE's routing masks bit for bit.
 """
 import ast
 from pathlib import Path
@@ -837,6 +839,96 @@ def test_placement_cut_equals_host_recount_on_card(card):
         assert np.bincount(part, minlength=k).max() <= \
             (1 + eps) * np.ceil(n / k), quality
         assert 0 < res.reduction < 1, quality
+
+
+# --------------------------------------------------------------------------
+# LM serving: the transformer on the card against its CPU run
+# --------------------------------------------------------------------------
+LM_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _lm_on_card_and_cpu(card, aid: str, seed: int):
+    """``aid``'s SMOKE model (f32) drawn on the card, and a CPU copy."""
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.models import transformer
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = SMOKES[aid]
+    model = transformer.init_params(
+        cfg, torch.Generator(card).manual_seed(seed), device=card)
+    cpu = transformer.Transformer(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    return cfg, model, cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aid", ["codeqwen1.5-7b", "phi3.5-moe-42b-a6.6b"])
+def test_lm_prefill_and_decode_equal_cpu_on_card(card, aid):
+    """A dense and a MoE SMOKE model: prefill logits (the MoE over 256
+    groups of 2 tokens, capacity 1: tokens drop) and 4 decode steps on
+    the card equal the CPU run, and so do the caches they write."""
+    from repro_torch.models import transformer
+    cfg, model, cpu = _lm_on_card_and_cpu(card, aid, seed=4)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 256)).astype(np.int32))
+    torch.testing.assert_close(
+        transformer.prefill_logits(model, toks.to(card)).cpu(),
+        transformer.prefill_logits(cpu, toks), **LM_TOL)
+    caches = [transformer.init_cache(cfg, 2, 8, dev) for dev in (card, "cpu")]
+    for i in range(4):
+        got, caches[0] = transformer.decode_step(
+            model, caches[0], toks[:, i:i + 1].to(card), i)
+        want, caches[1] = transformer.decode_step(cpu, caches[1],
+                                                  toks[:, i:i + 1], i)
+        torch.testing.assert_close(got.cpu(), want, **LM_TOL)
+    for name in ("k", "v"):
+        torch.testing.assert_close(caches[0][name].cpu(), caches[1][name],
+                                   **LM_TOL)
+        assert not bool(caches[0][name][:, :, 4:].any())
+
+
+@pytest.mark.cuda
+def test_lm_greedy_decode_equals_prefill_argmax_on_card(card):
+    """The reference's decode-consistency bar on the card (f32, GQA)."""
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeSession
+    cfg, model, _ = _lm_on_card_and_cpu(card, "stablelm-12b", seed=5)
+    sess = ServeSession(cfg=cfg, params=model, max_seq=32, batch=3)
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (3, 8)).astype(np.int32)).to(card)
+    gen, logits = sess.generate(prompt, 12)
+    assert gen.shape == (3, 12) and bool(torch.isfinite(logits).all())
+    greedy = transformer.prefill_logits(
+        model, torch.cat([prompt, gen], dim=1)).argmax(dim=-1)
+    assert torch.equal(greedy[:, 7:-1].to(torch.int32), gen)
+    scores = sess.score(torch.cat([prompt, gen], dim=1))
+    assert scores.shape == (3,) and bool(torch.isfinite(scores).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,t,e,cf", [(4, 16, 4, 0.5), (1, 16, 16, 1.25)])
+def test_moe_dispatch_masks_on_card_equal_cpu(card, g, t, e, cf):
+    """The MoE's routing masks on the card, bit for bit those of the
+    CPU: from the same probabilities (with ties between experts 0 and
+    1), and from integer-valued tokens and router weights (their f32
+    logits are exact in any order of addition)."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng(t + e)
+    logits = rng.normal(size=(g, t, e)).astype(np.float32)
+    logits[..., 1] = logits[..., 0]
+    probs = torch.softmax(torch.from_numpy(logits), dim=-1)
+    cap = moe.capacity(2, t, cf, e)
+    for got, want in zip(moe.route_masks(probs.to(card), 2, cap,
+                                         torch.float32),
+                         moe.route_masks(probs, 2, cap, torch.float32)):
+        assert torch.equal(got.cpu(), want)
+    x = torch.from_numpy(rng.integers(-3, 4, (g, t, 32)).astype(np.float32))
+    rw = torch.from_numpy(rng.integers(-3, 4, (32, e)).astype(np.float32))
+    got = moe.moe_route(x.to(card), rw.to(card), 2, cf)
+    want = moe.moe_route(x, rw, 2, cf)
+    assert torch.equal(got.logits.cpu(), want.logits)
+    assert torch.equal(got.onehot.cpu(), want.onehot)
+    assert torch.equal(got.dispatch.cpu(), want.dispatch)
+    assert float(want.dispatch.sum()) < g * t * 2 or cf > 1
 
 
 # --------------------------------------------------------------------------
