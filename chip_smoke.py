@@ -102,7 +102,25 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    ``pos`` with later rows zero, with time to first token, decode ms a
    step, tokens/s beside the step's byte bound; ``score`` with [B] finite
    values, its ms and TFLOP/s (``launch.analytic.model_flops``); the
-   peak device memory of each.
+   peak device memory of each;
+16. training (``repro_torch.train.steps``, ``optim.adamw``, the flash
+   backward; ``launch.train``): (i) one train step of codeqwen1.5-7b
+   and phi3.5-moe-42b-a6.6b at full width with 1 layer in f32, and of
+   grok-1's SMOKE config with int8 moments, on the card equal to the
+   same step on the CPU (loss, grad_norm, lr, every parameter and
+   moment); (ii)-(iii) codeqwen with 8 of its 32 layers and phi with 2
+   in bf16 at train_4k's 4,096 tokens (``TRAIN_LM``: global batch 8 and
+   4 in the config's 4 microbatches), a warm-up, 3 timed steps and a
+   traced one, with ms, tokens/s, TFLOP/s (``model_flops``) against the
+   bf16 peak, peak memory, the device's busy share and top kernels;
+   (iv) the GNN zoo's train cells (full_graph_sm, molecule,
+   graphsage-reddit's minibatch_lg); (v) DLRM at the MLPerf widths
+   (tables capped at 2**20 rows) at train_batch's 65,536 samples, the
+   dense and the sparse step, the sparse one run twice from one state
+   to the same bits, its duplicate-row sums through #4 (held against
+   its plain version at that shape); (vi) the train CLI in child
+   processes, a run resumed from its checkpoint equal to an unbroken
+   one bit for bit.  Every loss and grad_norm finite, every leaf moved.
 
 The kernel phase also holds the connectivity and cut kernels (#7/#8, at
 the reference's sweeps and at ``CUT_ODD``'s odd shapes) and the
@@ -118,7 +136,7 @@ its cut once more on the card through ``ops.connectivity`` and
 the ops route), which must agree with the host.
 
 ``--phases`` takes a comma list of
-``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances,incremental,service,substrate,lm``
+``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances,incremental,service,substrate,lm,train``
 (default: all; empty for none) for runs that debug one phase; the kernels line is only printed
 when every phase ran.  ``--repair-cost=DIR`` then times the static
 memetic run of the ``sched`` phase with its mutation seconds on the
@@ -182,7 +200,8 @@ KERNEL_META = {
                       "src/repro/kernels/embedding_bag.py:66"),
 }
 PHASES = ("kernels", "cardtests", "parity", "off", "memetic", "cli", "ops",
-          "sched", "instances", "incremental", "service", "substrate", "lm")
+          "sched", "instances", "incremental", "service", "substrate", "lm",
+          "train")
 
 # the largest level FM refines (``refine.refine_population``'s default)
 FM_NODE_LIMIT = 4096
@@ -1581,13 +1600,15 @@ def run_sched_path(design: str, k: int, must_launch, cohort_launch=(),
 # the instance phase: the reference service benchmark's request stream
 # (``BENCH_service.json``: 12 requests, alpha 4, lp_iters 8), of which
 # (a) groups the first INSTANCE_STREAM and (d) the first INSTANCE_BANDIT,
-# to keep the script inside its time limit beside the service, substrate
-# and lm phases (the 12 took 770 s grouped and solo on the H100, and the
-# first 6 191.6 s grouped, almost all of it in each request's own
+# to keep the script inside its time limit beside the service, substrate,
+# lm and train phases (the 12 took 770 s grouped and solo on the H100,
+# and the first 6 191.6 s grouped, almost all of it in each request's own
 # recombinations and mutations; (d) on the first 4 took 65.0 s live and
-# 60.9 s replayed), and the serving buckets of its grid
+# 60.9 s replayed; (a) on the first 3 took 102.8 s grouped, most of it
+# the third, bench-2's 620 vertices at k 6, so (a) takes 2 beside the
+# train phase), and the serving buckets of its grid
 INSTANCE_REQUESTS = 6
-INSTANCE_STREAM = 3
+INSTANCE_STREAM = 2
 INSTANCE_BANDIT = 2
 INSTANCE_GRID = (1024, 4096, 16384, 65536)
 INSTANCE_ISPD = (("ibm01_like", 16), ("ibm02_like", 12), ("ibm03_like", 32))
@@ -2696,13 +2717,10 @@ def _substrate_gnn(dev) -> None:
     the CPU run of the same module) and molecule for each arch, and
     graphsage-reddit's minibatch regime through ``NeighborSampler``."""
     import copy
-    import numpy as np
     import torch
     from repro_torch.configs import registry
     from repro_torch.configs.base import GNN_SHAPES
-    from repro_torch.data.graphs import (full_graph_batch, molecule_batch,
-                                         power_law_graph)
-    from repro_torch.data.sampler import NeighborSampler
+    from repro_torch.data.graphs import full_graph_batch, molecule_batch
     from repro_torch.models import gnn
     from repro_torch.models.layers import batch_to
     shapes = {s.name: s.p() for s in GNN_SHAPES}
@@ -2742,15 +2760,7 @@ def _substrate_gnn(dev) -> None:
                   f"{tuple(mout.shape)} ms {mms!r}")
         cfg = registry.get_arch("graphsage-reddit").config
         mb = shapes["minibatch_lg"]
-        t0 = time.perf_counter()
-        ei = power_law_graph(REDDIT_NODES, REDDIT_EDGES, seed=0)
-        rng = np.random.default_rng(0)
-        feats = rng.normal(size=(REDDIT_NODES, cfg.d_feat)).astype(
-            np.float32)
-        labels = rng.integers(0, cfg.n_classes, REDDIT_NODES).astype(
-            np.int32)
-        smp = NeighborSampler(ei, REDDIT_NODES, feats, labels,
-                              fanout=cfg.sample_sizes, seed=0)
+        smp, edges, build_s = _reddit_sampler(cfg, cfg.sample_sizes)
         t1 = time.perf_counter()
         host = smp.batch(mb["batch_nodes"])
         t2 = time.perf_counter()
@@ -2761,10 +2771,10 @@ def _substrate_gnn(dev) -> None:
             raise AssertionError("gnn graphsage-reddit minibatch: "
                                  "non-finite logits")
         print(f"[substrate] gnn graphsage-reddit minibatch: "
-              f"{REDDIT_NODES} nodes, {ei.shape[1]} edges (cut: a tenth "
+              f"{REDDIT_NODES} nodes, {edges} edges (cut: a tenth "
               f"of minibatch_lg's {mb['n_edges']}), fanout "
               f"{cfg.sample_sizes}, {mb['batch_nodes']} roots: graph and "
-              f"sampler {t1 - t0!r} s, batch {t2 - t1!r} s, logits "
+              f"sampler {build_s!r} s, batch {t2 - t1!r} s, logits "
               f"{tuple(out.shape)} ms {ms!r}")
     torch.cuda.empty_cache()
 
@@ -2804,13 +2814,15 @@ def run_substrate_path(must_launch):
 
 # the lm phase: LM serving (``ServeSession``) at the published widths in
 # bf16.  Per architecture: (layers kept, None for all; generate batch,
-# prompt length, new tokens, max_seq; score batch, score length).
+# prompt length, new tokens, max_seq; score batch, score length).  The
+# prompts are 192 and 64 tokens (448 and 192 took 17.4 and 10.9 s to the
+# first token), to keep the script inside its limit with the train phase.
 # Phi-3.5-MoE keeps 16 of its 32 layers: all 32 need 84 GB in bf16, more
 # than the card holds; every layer is a MoE layer, so 16 hold every kind.
 # Its score batch keeps B * S a multiple of the 256 MoE token groups.
 LM_RUNS = {
-    "codeqwen1.5-7b": (None, 16, 448, 64, 512, 4, 2048),
-    "phi3.5-moe-42b-a6.6b": (16, 16, 192, 64, 256, 4, 1024),
+    "codeqwen1.5-7b": (None, 16, 192, 64, 256, 4, 2048),
+    "phi3.5-moe-42b-a6.6b": (16, 16, 64, 64, 128, 4, 1024),
 }
 # gates (i) and (ii): each architecture at full width with 2 layers in
 # f32, on the card and on the CPU; a prefill of 2 x 256 tokens (phi's MoE
@@ -3090,6 +3102,727 @@ def run_lm_path() -> None:
           f"allocated before {before!r} B, after "
           f"{torch.cuda.memory_allocated()!r} B")
 
+
+# the train phase: training (``repro_torch.train.steps``, the AdamW
+# update, the flash backward) on the card.  (i) gates, f32, card against
+# CPU: each architecture at its published widths with
+# ``TRAIN_GATE_LAYERS`` layer, ``TRAIN_GATE_BATCH`` sequences of
+# ``TRAIN_GATE_SEQ`` tokens in 2 microbatches, one step from a state at
+# step 200 with random moments (m ~ N(0, 1e-3^2), v ~ U(1e-7, 1e-6): an
+# update smooth in the gradient); grok-1's SMOKE config with int8 moments
+# (v ~ U(1e-4, 1e-3), so that no v quantises to a few steps of its
+# block's scale, where m/sqrt(v) is ill-conditioned).
+TRAIN_GATES = (("codeqwen1.5-7b", False), ("phi3.5-moe-42b-a6.6b", False),
+               ("grok-1-314b", True))          # (arch, its SMOKE config)
+TRAIN_GATE_LAYERS, TRAIN_GATE_BATCH, TRAIN_GATE_SEQ = 1, 2, 256
+# f32 sums of up to 26,880 products in another order on the two devices
+# (the lm phase's gates: 1e-4): loss, grad_norm, lr and the moments rtol
+# 1e-4 (m atol 1e-6, v atol 1e-9: the gradient's last digits); the
+# parameters rtol 1e-5, atol 1e-6 (an update is lr * delta, about 3e-4,
+# and delta moves by about 1e-5 of itself with its gradient); int8
+# moments within one quantiser step (a rounding boundary), scales rtol
+# 1e-4
+TRAIN_GATE_RTOL = 1e-4
+TRAIN_GATE_TOL = {"['params']": (1e-5, 1e-6), "['m']": (1e-4, 1e-6),
+                  "['v']": (1e-4, 1e-9)}
+# (ii)-(iii) the LMs in bf16 at train_4k's sequence length, cut in depth
+# and global batch (the config's 4 microbatches and remat kept): (layers,
+# global batch).  All 32 layers of codeqwen need about 115 GB of state at
+# 14 bytes a parameter (bf16 weights, f32 gradient accumulator, f32 m and
+# v); 8 layers hold 2.615 B parameters.  Phi's 2 of 32 layers hold 2.863 B.
+TRAIN_LM = {"codeqwen1.5-7b": (8, 8), "phi3.5-moe-42b-a6.6b": (2, 4)}
+TRAIN_START_STEP = 200
+TRAIN_WARMUP, TRAIN_TIMED = 1, 3
+# (iv) the GNN zoo's training cells, 3 steps each
+TRAIN_GNN = ("gatedgcn", "gin-tu", "meshgraphnet")
+TRAIN_GNN_STEPS = 3
+# (v) DLRM at the MLPerf widths, each table capped at DLRM_ROW_CAP rows
+# (7,401,902 in all): the dense step holds p, the gradient, m and v of
+# the [R, 128] f32 table (about 15 GB) and the update's temporaries.
+# #4 at the sparse step's shape against its plain version (index_add_,
+# whose atomics add in another order): runs of up to about 25,000
+# per-sample gradients of mixed sign, whose two orders of addition
+# differ by about sqrt(n) ulps of the partial sums (1.4e-9 seen against
+# sums up to 3.4e-4): rtol 1e-4 and atol 1e-5 of the largest sum
+TRAIN_DLRM_STEPS = 3
+# (vi) the train CLI on the card in child processes: 6 steps unbroken,
+# and 3 steps then a resume to 6, checkpoints every 3
+TRAIN_CLI = ("--arch", "codeqwen1.5-7b", "--batch", "8", "--seq", "64",
+             "--ckpt-every", "3", "--device", "cuda")
+_REDDIT = {}
+
+
+def _reddit_sampler(cfg, fanout):
+    """graphsage-reddit's sampler with ``fanout`` over Reddit's node count
+    and a tenth of its edges; the graph is drawn once a run (the
+    substrate and train phases share it).  Returns (sampler, edges,
+    seconds it took to draw the graph and build this sampler)."""
+    import numpy as np
+    from repro_torch.data.graphs import power_law_graph
+    from repro_torch.data.sampler import NeighborSampler
+    t0 = time.perf_counter()
+    if not _REDDIT:
+        rng = np.random.default_rng(0)
+        _REDDIT["graph"] = (
+            power_law_graph(REDDIT_NODES, REDDIT_EDGES, seed=0),
+            rng.normal(size=(REDDIT_NODES, cfg.d_feat)).astype(np.float32),
+            rng.integers(0, cfg.n_classes, REDDIT_NODES).astype(np.int32))
+    ei, feats, labels = _REDDIT["graph"]
+    smp = NeighborSampler(ei, REDDIT_NODES, feats, labels,
+                          fanout=tuple(fanout), seed=0)
+    return smp, int(ei.shape[1]), time.perf_counter() - t0
+
+
+def _train_state(params, opt_cfg, dev, moments=None):
+    """``{"params", "opt"}`` at ``TRAIN_START_STEP``: zero moments, or
+    with ``moments=(seed, v_lo, v_hi)`` m ~ N(0, 1e-3^2) and v ~ U(v_lo,
+    v_hi) drawn on ``dev`` (int8 when the config quantises them)."""
+    import torch
+    from repro_torch.optim import adamw
+    opt = adamw.init(params, opt_cfg)
+    opt["step"].fill_(TRAIN_START_STEP)
+    if moments is not None:
+        seed, lo, hi = moments
+        gen = torch.Generator(dev).manual_seed(seed)
+
+        def draw(p, kind):
+            x = torch.empty(p.shape, dtype=torch.float32, device=dev)
+            if kind == "m":
+                x.normal_(generator=gen).mul_(1e-3)
+            else:
+                x.uniform_(lo, hi, generator=gen)
+            if opt_cfg.quantize_moments:
+                return adamw._quantize(x, opt_cfg.q_block, opt_cfg.q_row_mult)
+            return x
+        opt["m"] = adamw.tree_map(lambda p: draw(p, "m"), params)
+        opt["v"] = adamw.tree_map(lambda p: draw(p, "v"), params)
+    return {"params": params, "opt": opt}
+
+
+def _state_to(state, dev):
+    """A copy of a train state on ``dev``."""
+    from repro_torch.optim import adamw
+
+    def copy(x):
+        if isinstance(x, adamw.QTensor):
+            return adamw.QTensor(copy(x.q), copy(x.scale), x.shape)
+        return x.detach().to(dev, copy=True)
+    return adamw.tree_map(copy, state)
+
+
+def _state_leaves(state):
+    """(paths, detached leaves) of a train state, int8 moments as their
+    ``q`` and ``scale``, in the reference's flatten order."""
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+    paths, xs = _flatten_with_paths(state)
+    return paths, [x.detach() for x in xs]
+
+
+def _train_gate(aid: str, smoke: bool, dev):
+    """(i), the card's part: one train step of ``aid`` (f32) on the card
+    from a state whose copy stays on the host.  Returns the check to run
+    on the CPU (``_train_gate_check``'s arguments): the host copy of the
+    state before the step, the card's state after it (on the host), its
+    metrics, the step's cell and batch."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import batch_to
+    from repro_torch.train import build_cell
+    t0 = time.perf_counter()
+    spec = registry.get_arch(aid)
+    cfg = (registry.SMOKES[aid] if smoke else dataclasses.replace(
+        spec.config, n_layers=TRAIN_GATE_LAYERS, dtype="float32"))
+    cfg = dataclasses.replace(cfg, microbatches=2)
+    opt_cfg = registry.get_opt(aid)
+    shape = ShapeSpec("gate", "train", (("seq_len", TRAIN_GATE_SEQ),
+                                        ("global_batch", TRAIN_GATE_BATCH)))
+    cell = build_cell(dataclasses.replace(spec, config=cfg), shape,
+                      opt_cfg=opt_cfg, n_devices=1)
+    model = transformer.init_params(cfg, torch.Generator(dev).manual_seed(1),
+                                    device=dev)
+    n = sum(p.numel() for p in model.parameters())
+    v_range = (1e-4, 1e-3) if opt_cfg.quantize_moments else (1e-7, 1e-6)
+    state = _train_state(transformer.param_tree(model), opt_cfg, dev,
+                         moments=(2,) + v_range)
+    del model
+    cpu = torch.device("cpu")
+    before = _state_to(state, cpu)
+    host = TokenStream(cfg.vocab, TRAIN_GATE_BATCH, TRAIN_GATE_SEQ,
+                       seed=2).next_batch(0)
+    state, got = cell.fn(state, batch_to(host, dev))
+    got = {k: float(v) for k, v in got.items()}
+    after = _state_to(state, cpu)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    what = (f"{aid} ({'SMOKE' if smoke else 'published widths'}, "
+            f"{cfg.n_layers} layers, f32, TF32 off, {n} parameters, "
+            f"{'int8' if opt_cfg.quantize_moments else 'f32'} moments)")
+    return (what, cell, before, after, got, host,
+            time.perf_counter() - t0)
+
+
+def _close_in_pieces(a, b, rtol: float, atol: float, what: str) -> float:
+    """``|a - b| <= atol + rtol * |b|`` everywhere (NaN fails), the test
+    of ``torch.testing.assert_close``, in flat pieces of 2^24 elements so
+    that a gate's billion-element leaves need no full-size temporaries on
+    the host.  Returns the largest ``|a - b|``."""
+    import torch
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    worst = 0.0
+    for i in range(0, fa.numel(), 1 << 24):
+        pa, pb = fa[i:i + (1 << 24)], fb[i:i + (1 << 24)]
+        d = (pa - pb).abs_()
+        if not bool((d <= pb.abs().mul_(rtol).add_(atol)).all()):
+            raise AssertionError(f"{what}: outside rtol {rtol}, atol {atol}"
+                                 f" (max abs diff {float(d.max())!r})")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def _train_gate_check(what, cell, before, after, got, host, card_s) -> None:
+    """(i), the CPU's part: the same step on the CPU from ``before``, held
+    to the card's state ``after`` and metrics ``got``: loss, grad_norm,
+    lr and every leaf."""
+    import numpy as np
+    import torch
+    from repro_torch.models.layers import batch_to
+    t0 = time.perf_counter()
+    cpu_state, want = cell.fn(before, batch_to(host, torch.device("cpu")))
+    cpu_s = time.perf_counter() - t0
+    for key in ("loss", "grad_norm", "lr"):
+        g, w = got[key], float(want[key])
+        if not (np.isfinite(g) and abs(g - w) <= TRAIN_GATE_RTOL * abs(w)):
+            raise AssertionError(f"train gate {what} {key}: card {g!r}, "
+                                 f"cpu {w!r}")
+    gp, gx = _state_leaves(after)
+    wp, wx = _state_leaves(cpu_state)
+    if gp != wp:
+        raise AssertionError(f"train gate {what}: the states' paths differ")
+    worst = {}
+    for path, a, b in zip(gp, gx, wx):
+        if a.dtype == torch.int8:
+            d = int((a.int() - b.int()).abs().max())
+            if d > 1:
+                raise AssertionError(f"train gate {what} {path}: q differs "
+                                     f"by {d}")
+            worst["q steps"] = max(worst.get("q steps", 0), d)
+            continue
+        if not a.is_floating_point():
+            if not torch.equal(a, b):
+                raise AssertionError(f"train gate {what} {path} differs")
+            continue
+        key = next(k for k in TRAIN_GATE_TOL if k in path)
+        rtol, atol = TRAIN_GATE_TOL[key]
+        if path.endswith("[<flat index 1>]"):       # int8 moments' scales
+            rtol, atol = TRAIN_GATE_RTOL, 0.0
+        worst[key] = max(worst.get(key, 0.0),
+                         _close_in_pieces(a, b, rtol, atol,
+                                          f"train gate {what} {path}"))
+    print(f"[train] gate (i) {what}: one step of {TRAIN_GATE_BATCH}x"
+          f"{TRAIN_GATE_SEQ} tokens in 2 microbatches from step "
+          f"{TRAIN_START_STEP} equals the CPU run: loss {got['loss']!r} (cpu "
+          f"{float(want['loss'])!r}), grad_norm {got['grad_norm']!r} (cpu "
+          f"{float(want['grad_norm'])!r}), lr {got['lr']!r}; every leaf "
+          f"within {TRAIN_GATE_TOL}, max abs diffs {worst}; card {card_s!r} "
+          f"s, cpu {cpu_s!r} s")
+
+
+def _moved_probe(state) -> dict:
+    """Each leaf's sum (f64, or int64 for an int8 moment; the moments'
+    scales and the step left out), to tell later which leaves moved."""
+    import torch
+    paths, xs = _state_leaves(state)
+    return {path: torch.sum(x.detach(), dtype=(
+        torch.float64 if x.is_floating_point() else torch.int64))
+        for path, x in zip(paths, xs)
+        if not path.endswith("[<flat index 1>]") and "['step']" not in path}
+
+
+def _beyond_reach(leaf, opt_cfg) -> bool:
+    """Whether no AdamW step can move the bf16 ``leaf``: every element is
+    nonzero and half its bf16 spacing, at least 2^(floor(log2|x|) - 9),
+    exceeds ``lr`` times the largest ``|delta|``: ``|m^|/sqrt(v^)`` is at
+    most (1 - b1) / sqrt(1 - b2) / (1 - b1 / sqrt(b2)) (5.83 at the default
+    betas), plus ``wd * |p|``.  (A bf16 norm scale at 1.0 with lr 3e-4.)"""
+    import torch
+    if leaf.dtype != torch.bfloat16:
+        return False
+    x = leaf.detach().float().abs()
+    if not bool((x > 0).all()):
+        return False
+    b1, b2 = opt_cfg.b1, opt_cfg.b2
+    ratio = (1 - b1) / (1 - b2) ** 0.5 / (1 - b1 / b2 ** 0.5)
+    reach = opt_cfg.lr * (ratio + opt_cfg.weight_decay * float(x.max()))
+    half = torch.exp2(torch.floor(torch.log2(x)) - 9)
+    return bool((half > reach).all())
+
+
+def _check_moved(probe: dict, state, opt_cfg, what: str) -> str:
+    """Fail unless every leaf moved, but a bf16 parameter that
+    ``_beyond_reach`` says no step can move; returns a note naming those."""
+    paths, xs = _state_leaves(state)
+    leaf = dict(zip(paths, xs))
+    now = _moved_probe(state)
+    unmoved = [p for p, was in probe.items() if bool(now[p] == was)]
+    frozen = [p for p in unmoved
+              if "['params']" in p and _beyond_reach(leaf[p], opt_cfg)]
+    if len(frozen) != len(unmoved):
+        raise AssertionError(f"train {what}: leaves that did not move: "
+                             f"{sorted(set(unmoved) - set(frozen))}")
+    if not frozen:
+        return "every parameter leaf and both moments moved"
+    return (f"every leaf moved but the bf16 parameters {frozen}, which no "
+            f"step can move (half a bf16 ulp of each element exceeds lr "
+            f"times the largest |delta|), and whose moments moved")
+
+
+def _timed_steps(cell, state, batches, dev, what: str):
+    """Run ``cell.fn`` over ``batches`` (host dicts), each step timed on
+    the host clock around work that ends in a synchronize.  Returns (state,
+    per-step ms, per-step metrics as floats)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.layers import batch_to
+    ms, metrics = [], []
+    for host in batches:
+        batch = batch_to(host, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = cell.fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if not all(np.isfinite(v) for v in metrics[-1].values()):
+            raise AssertionError(f"train {what}: non-finite {metrics[-1]}")
+    return state, ms, metrics
+
+
+def _trace_step(cell, state, host, dev, what: str):
+    """One step under ``torch.profiler``: the device's busy share of the
+    traced wall and the kernels that take most of its time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.layers import batch_to
+    batch = batch_to(host, dev)
+    torch.cuda.synchronize()
+    # device activity only: the busy share needs the kernels, and a
+    # trace of every host op of a step takes longer to read than the step
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = cell.fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _kernel_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e6
+    print(f"[train] {what} traced step: wall {wall * 1e3!r} ms, device busy "
+          f"{busy * 1e3!r} ms, busy share {busy / wall!r}, "
+          f"{sum(r[2] for r in rows)} kernels")
+    for dev_us, key, count in sorted(rows, reverse=True)[:8]:
+        print(f"[train] {what} {dev_us / 1e3:.3f} ms ({dev_us / 1e6 / busy:.3f}"
+              f" of busy)  {count} calls  {key[:90]}")
+    return state
+
+
+def _train_lm(aid: str, layers: int, gbatch: int, dev) -> None:
+    """(ii)/(iii) ``aid`` at its published widths in bf16, ``layers``
+    layers, train_4k's sequence length at global batch ``gbatch``:
+    ``TRAIN_WARMUP`` + ``TRAIN_TIMED`` steps and one traced step from
+    step 200 with zero moments."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ArchSpec, ShapeSpec
+    from repro_torch.data.lm_data import TokenStream
+    from repro_torch.launch.analytic import model_flops
+    from repro_torch.models import transformer
+    from repro_torch.train import build_cell
+    spec = registry.get_arch(aid)
+    full = spec.config
+    cfg = dataclasses.replace(full, n_layers=layers)
+    seq = int(spec.shape("train_4k").p()["seq_len"])
+    shape = ShapeSpec("train_4k", "train", (("seq_len", seq),
+                                            ("global_batch", gbatch)))
+    opt_cfg = registry.get_opt(aid)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                    device=dev)
+    n = sum(p.numel() for p in model.parameters())
+    state = _train_state(transformer.param_tree(model), opt_cfg, dev)
+    del model
+    cell = build_cell(dataclasses.replace(spec, config=cfg), shape,
+                      opt_cfg=opt_cfg, n_devices=1)
+    ts = TokenStream(cfg.vocab, gbatch, seq, seed=0)
+    batches = [ts.next_batch(i) for i in range(TRAIN_WARMUP + TRAIN_TIMED
+                                               + 1)]
+    torch.cuda.synchronize()
+    print(f"[train] {aid}: d {cfg.d_model}, {cfg.n_heads} heads, kv "
+          f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, experts "
+          f"{cfg.moe_experts}, {cfg.dtype}, grad accumulation "
+          f"{cfg.grad_accum_dtype}, remat {cfg.remat}; {layers} of "
+          f"{full.n_layers} layers (cut), global batch {gbatch} of "
+          f"{spec.shape('train_4k').p()['global_batch']} (cut) in "
+          f"{cfg.microbatches} microbatches of {gbatch // cfg.microbatches}"
+          f" x {seq} tokens; {n} parameters; init {time.perf_counter() - t0!r}"
+          f" s")
+    probe = _moved_probe(state)
+    state, wms, _ = _timed_steps(cell, state, batches[:TRAIN_WARMUP], dev,
+                                 aid)
+    state, ms, metrics = _timed_steps(cell, state, batches[TRAIN_WARMUP:-1],
+                                      dev, aid)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    flops = model_flops(ArchSpec(aid, cfg, (shape,), cfg), "train_4k")
+    tokens = gbatch * seq
+    for i, (t, m) in enumerate(zip(ms, metrics)):
+        rate = flops / (t / 1e3)
+        print(f"[train] {aid} step {i + 1} of {TRAIN_TIMED}: {t!r} ms, "
+              f"{tokens * 1e3 / t!r} tokens/s, {rate / 1e12!r} TFLOP/s "
+              f"(model_flops {flops / 1e12!r} TFLOP a step), "
+              f"{rate / BF16_OPS_PER_S!r} of the "
+              f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16 peak; loss "
+              f"{m['loss']!r} grad_norm {m['grad_norm']!r} lr {m['lr']!r}")
+    state = _trace_step(cell, state, batches[-1], dev, aid)
+    moved = _check_moved(probe, state, opt_cfg, aid)
+    print(f"[train] {aid}: warm-up step {wms[0]!r} ms; timed mean "
+          f"{sum(ms) / len(ms)!r} ms; {moved}; peak device memory {peak!r} GB; "
+          f"{time.perf_counter() - t0!r} s")
+    del state, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_gnn(dev) -> None:
+    """(iv) the GNN zoo's train cells at their published widths:
+    full_graph_sm and molecule for ``TRAIN_GNN``, graphsage-reddit's
+    minibatch_lg over the Reddit-sized graph; ``TRAIN_GNN_STEPS`` steps
+    each from step 200."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.graphs import full_graph_batch, molecule_batch
+    from repro_torch.launch.analytic import model_flops
+    from repro_torch.models import gnn
+    from repro_torch.train import build_cell, steps
+    gen = torch.Generator(dev).manual_seed(3)
+    runs = []
+    for arch in TRAIN_GNN:
+        for name in ("full_graph_sm", "molecule"):
+            runs.append((arch, name))
+    runs.append(("graphsage-reddit", "minibatch_lg"))
+    for arch, name in runs:
+        spec = registry.get_arch(arch)
+        cfg = spec.config
+        shape = spec.shape(name)
+        p = shape.p()
+        fe = gnn._edge_feat_dim(cfg)
+        d_feat = int(p.get("d_feat", cfg.d_feat))
+        cell = build_cell(spec, shape, opt_cfg=registry.get_opt(arch))
+        model = gnn.init_params(cfg, gen, d_feat, cfg.n_classes, device=dev)
+        state = _train_state(gnn.param_tree(model), registry.get_opt(arch),
+                             dev)
+        extra = ""
+        if name == "full_graph_sm":
+            batches = [steps.pad_edges(full_graph_batch(
+                p["n_nodes"], p["n_edges"], d_feat, cfg.n_classes, seed=i,
+                need_edge_feat=fe)) for i in range(TRAIN_GNN_STEPS)]
+            extra = (f"{p['n_nodes']} nodes, {p['n_edges']} edges padded "
+                     f"to {batches[0]['edge_index'].shape[1]}")
+        elif name == "molecule":
+            batches = [molecule_batch(p["batch"], p["n_nodes"], p["n_edges"],
+                                      cfg.d_feat, cfg.n_classes, seed=i,
+                                      need_edge_feat=fe)
+                       for i in range(TRAIN_GNN_STEPS)]
+            extra = (f"{p['batch']} graphs of {p['n_nodes']} nodes, "
+                     f"{p['n_edges']} edges")
+        else:
+            smp, edges, build_s = _reddit_sampler(cfg, p["fanout"])
+            batches = [smp.batch(p["batch_nodes"])
+                       for _ in range(TRAIN_GNN_STEPS)]
+            extra = (f"{REDDIT_NODES} nodes, {edges} edges (a tenth of "
+                     f"{p['n_edges']}; graph and sampler {build_s!r} s), "
+                     f"{p['batch_nodes']} roots, fanout {p['fanout']}")
+        probe = _moved_probe(state)
+        torch.cuda.reset_peak_memory_stats()
+        state, ms, metrics = _timed_steps(cell, state, batches, dev,
+                                          f"{arch} {name}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        moved = _check_moved(probe, state, registry.get_opt(arch),
+                             f"gnn {arch} {name}")
+        unit, count = (("nodes", p["n_nodes"]) if name == "full_graph_sm"
+                       else ("graphs", p["batch"]) if name == "molecule"
+                       else ("roots", p["batch_nodes"]))
+        flops = model_flops(spec, name)
+        print(f"[train] gnn {arch} {name} ({cfg.n_layers} layers, d "
+              f"{cfg.d_hidden}, f32; {extra}): ms a step {ms!r}; "
+              f"{unit}/s {[count * 1e3 / t for t in ms]!r}; TFLOP/s "
+              f"{[flops / t / 1e9 for t in ms]!r} (model_flops "
+              f"{flops / 1e12!r} TFLOP a step; the f32 peak "
+              f"{F32_OPS_PER_S / 1e12:.0f}); peak device memory {peak!r} "
+              f"GB; loss {[m['loss'] for m in metrics]!r}; grad_norm "
+              f"{metrics[-1]['grad_norm']!r}; {moved}")
+        del model, state, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_dlrm(dev):
+    """(v) DLRM at the MLPerf widths (tables capped at DLRM_ROW_CAP rows)
+    at train_batch's 65,536 samples: ``TRAIN_DLRM_STEPS`` dense steps,
+    then the sparse step ``TRAIN_DLRM_STEPS`` times from one state twice,
+    which must give the same bits.  Returns the sparse steps' state and
+    the last batch (for the kernel check)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.recsys import click_batch
+    from repro_torch.launch.analytic import model_flops
+    from repro_torch.models import dlrm
+    from repro_torch.train import steps
+    spec = registry.get_arch("dlrm-mlperf")
+    cfg = dataclasses.replace(spec.config, table_sizes=tuple(
+        min(s, DLRM_ROW_CAP) for s in spec.config.table_sizes))
+    spec = dataclasses.replace(spec, config=cfg)
+    shape = spec.shape("train_batch")
+    b = int(shape.p()["batch"])
+    opt_cfg = registry.get_opt("dlrm-mlperf")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = dlrm.init_params(cfg, torch.Generator(dev).manual_seed(4),
+                             device=dev)
+    state = _train_state(dlrm.param_tree(model), opt_cfg, dev)
+    del model
+    batches = [click_batch(cfg, b, seed=i) for i in range(
+        2 * TRAIN_DLRM_STEPS)]
+    rows = state["params"]["tables"].shape[0]
+    probe = _moved_probe(state)
+    dense = steps.dlrm_train_cell(spec, shape, opt_cfg)
+    state, ms, metrics = _timed_steps(dense, state,
+                                      batches[:TRAIN_DLRM_STEPS], dev,
+                                      "dlrm dense")
+    moved = _check_moved(probe, state, opt_cfg, "dlrm dense")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    flops = model_flops(spec, "train_batch")
+    print(f"[train] dlrm dense ({rows} table rows of {cfg.embed_dim}, "
+          f"capped at {DLRM_ROW_CAP} a table; batch {b}; f32): ms a step "
+          f"{ms!r}, samples/s {[b * 1e3 / t for t in ms]!r}, TFLOP/s "
+          f"{[flops / t / 1e9 for t in ms]!r} (model_flops "
+          f"{flops / 1e12!r} TFLOP a step; the f32 peak "
+          f"{F32_OPS_PER_S / 1e12:.0f}); loss "
+          f"{[m['loss'] for m in metrics]!r}; {moved}; peak device memory "
+          f"{peak!r} GB")
+    sparse = steps.dlrm_train_cell(spec, shape, opt_cfg, sparse_update=True)
+    twin = _state_to(state, dev)
+    runs = []
+    for st in (state, twin):
+        probe = _moved_probe(st)
+        st, ms, metrics = _timed_steps(sparse, st,
+                                       batches[TRAIN_DLRM_STEPS:], dev,
+                                       "dlrm sparse")
+        moved = _check_moved(probe, st, opt_cfg, "dlrm sparse")
+        runs.append((st, ms, metrics))
+    (a, ms, metrics), (b_state, ms2, _) = runs
+    pa, xa = _state_leaves(a)
+    _, xb = _state_leaves(b_state)
+    differ = [p for p, x, y in zip(pa, xa, xb) if not torch.equal(x, y)]
+    if differ:
+        raise AssertionError(f"train dlrm sparse: two runs from one state "
+                             f"differ in {differ}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[train] dlrm sparse: ms a step {ms!r} (second run {ms2!r}), "
+          f"samples/s {[b * 1e3 / t for t in ms]!r}, TFLOP/s "
+          f"{[flops / t / 1e9 for t in ms]!r}; loss "
+          f"{[m['loss'] for m in metrics]!r}; two runs of "
+          f"{TRAIN_DLRM_STEPS} steps from one state give the same bits in "
+          f"all {len(pa)} leaves; {moved}; peak device memory "
+          f"{peak!r} GB; {time.perf_counter() - t0!r} s")
+    del state, twin, runs, b_state
+    return a, batches[-1], cfg
+
+
+def _check_sparse_sum_kernel(state, host, cfg, dev) -> None:
+    """#4 at the DLRM sparse step's shape (the transposed per-occurrence
+    row gradients [D, T] over their sorted run ids) against its plain
+    version on the card, timed beside it and beside ``index_add_``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    idx = torch.from_numpy(host["sparse_idx"]).to(dev).reshape(-1)
+    t = idx.shape[0]
+    order = torch.argsort(idx, stable=True)
+    si = idx[order].long()
+    run_start = torch.ones(t, dtype=torch.int32, device=dev)
+    run_start[1:] = (si[1:] != si[:-1]).to(torch.int32)
+    run_id = (torch.cumsum(run_start, 0) - 1).to(torch.int32)
+    gen = torch.Generator(dev).manual_seed(5)
+    g = torch.randn((cfg.embed_dim, t), generator=gen, device=dev) / t
+    got = ops.rating_segment_sum_batch(g, run_id, t)
+    want = ref.rating_segment_sum_batch_ref(g, run_id, t)
+    atol = 1e-5 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+    if not torch.equal(got, ops.rating_segment_sum_batch(g, run_id, t)):
+        raise AssertionError("#4 at the sparse step's shape: two launches "
+                             "differ")
+    ms = _time_ms(lambda: ops.rating_segment_sum_batch(g, run_id, t),
+                  iters=5, warmup=1)
+    plain = _time_ms(lambda: ref.rating_segment_sum_batch_ref(g, run_id, t),
+                     iters=2, warmup=1)
+    flat = g.t().contiguous()
+    lib = _time_ms(lambda: torch.zeros_like(flat).index_add_(
+        0, run_id.long(), flat), iters=5, warmup=1)
+    bound, by = _bound_ms(g.nbytes + run_id.nbytes + g.nbytes, g.numel())
+    runs = int(run_id[-1]) + 1
+    print(f"[train] #4 at the sparse step's shape ({cfg.embed_dim} rows x "
+          f"{t} ids in {runs} runs, longest "
+          f"{int(torch.bincount(run_id).max())}): equal to its plain version "
+          f"(rtol 1e-4, atol {atol!r}; max abs diff "
+          f"{float((got - want).abs().max())!r}), the same bits twice; "
+          f"{ms!r} ms (eager, CUDA events), plain {plain!r} ms, index_add_ "
+          f"{lib!r} ms, bound {bound!r} ms ({by})")
+
+
+class _TrainCli:
+    """(vi) ``python -m repro_torch.launch.train`` on the card in child
+    processes: ``TRAIN_CLI`` for 6 steps unbroken and for 3 steps, both
+    started at once (``__init__``); then ``--resume`` to 6 (``resume``);
+    ``finish`` holds the two final checkpoints bit for bit.  The phase
+    starts them beside its untimed parts, so that no child shares the
+    card with a timed step; ``stop`` ends any child still running."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.tmp = tempfile.TemporaryDirectory()
+        self.env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        self.procs = [self._start("a", 6), self._start("b", 3)]
+        self.logs = None
+
+    def _start(self, d, steps, *extra):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+             "--steps", str(steps), "--ckpt-dir",
+             os.path.join(self.tmp.name, d), *extra],
+            cwd=ROOT, env=self.env, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE)
+
+    def wait_first(self) -> None:
+        if self.logs is None:
+            outs = [p.communicate(timeout=300) for p in self.procs]
+            if any(p.returncode for p in self.procs):
+                raise AssertionError(f"train cli failed: "
+                                     f"{[o[1][-3000:] for o in outs]}")
+            self.logs = [o[0] for o in outs]
+
+    def resume(self) -> None:
+        self.wait_first()
+        self.procs.append(self._start("b", 6, "--resume"))
+
+    def finish(self) -> None:
+        import numpy as np
+        from repro_torch.checkpoint import CheckpointManager
+        out, err = self.procs[-1].communicate(timeout=300)
+        if self.procs[-1].returncode or \
+                "[train] resumed from step 3" not in out:
+            raise AssertionError(f"train cli resume: {out} {err[-3000:]}")
+        ma, la = CheckpointManager(os.path.join(self.tmp.name, "a"))._load(
+            None)
+        mb, lb = CheckpointManager(os.path.join(self.tmp.name, "b"))._load(
+            None)
+        if not (ma["step"] == mb["step"] == 6 and ma["paths"] == mb["paths"]
+                and all(np.array_equal(x, y) for x, y in zip(la, lb))):
+            raise AssertionError("train cli: the resumed run's state differs "
+                                 "from the unbroken run's")
+        print(f"[train] cli {' '.join(TRAIN_CLI)}: 6 steps unbroken and 3 + "
+              f"--resume to 6 give the same final state bit for bit "
+              f"({len(la)} leaves, cursor {mb['extra']['data_cursor']}); "
+              f"{self.logs[0].strip().splitlines()[-1]}; "
+              f"{out.strip().splitlines()[-1]}; "
+              f"{time.perf_counter() - self.t0!r} s from the first start")
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        self.tmp.cleanup()
+
+
+def run_train_path(must_launch) -> dict:
+    """Phase ``train``: training on the card.  (vi)'s first two CLI runs
+    start beside the gates; (i) the gates: grok-1's SMOKE gate whole, then
+    each published-width gate's card step, whose CPU step and comparison
+    run in a background thread while the card goes on (phi's beside
+    (ii), codeqwen's beside (iii)-(v); one at a time, so that the host
+    holds one gate's states); with the launch counts zeroed, (ii)-(v) the
+    main path: the LMs, the GNN zoo, DLRM's dense and sparse steps; #4
+    against its plain version at the sparse step's shape; the CLI's
+    resume.  Returns the main path's launches."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("TF32 is enabled; the port stays in f32")
+    before = torch.cuda.memory_allocated()
+    walls = {}
+    t0 = time.perf_counter()
+    cli = _TrainCli()
+    cpu_side = ThreadPoolExecutor(max_workers=1)
+    try:
+        for aid in (a for a, smoke in TRAIN_GATES if smoke):
+            _train_gate_check(*_train_gate(aid, True, dev))
+        dense_lm, moe_lm = (a for a, smoke in TRAIN_GATES if not smoke)
+        job = cpu_side.submit(_train_gate_check,
+                              *_train_gate(moe_lm, False, dev))
+        cli.wait_first()
+        walls["gates' card steps"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        _train_lm(dense_lm, *TRAIN_LM[dense_lm], dev)
+        walls[dense_lm] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        job.result()
+        walls["wait for the gates' cpu steps"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        job = cpu_side.submit(_train_gate_check,
+                              *_train_gate(dense_lm, False, dev))
+        walls["gates' card steps"] += time.perf_counter() - t1
+        t1 = time.perf_counter()
+        _train_lm(moe_lm, *TRAIN_LM[moe_lm], dev)
+        walls[moe_lm] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        _train_gnn(dev)
+        walls["gnn"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        state, host, cfg = _train_dlrm(dev)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        walls["dlrm"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        _check_sparse_sum_kernel(state, host, cfg, dev)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli.resume()
+        job.result()
+        cli.finish()
+        walls["#4, cli resume, wait"] = time.perf_counter() - t1
+    finally:
+        cpu_side.shutdown(wait=True)
+        cli.stop()
+    print(f"[train] wall_s {walls!r} total {time.perf_counter() - t0!r}; "
+          f"main path launches { {n: c for n, c in counts.items() if c} }; "
+          f"device memory allocated before {before!r} B, after "
+          f"{torch.cuda.memory_allocated()!r} B")
+    missing = [n for n in must_launch if counts.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"train path: kernels never launched: "
+                             f"{missing}")
+    return counts
 
 _COST_CHILD = """
 import json, sys, time
@@ -3548,6 +4281,8 @@ def main() -> int:
         add(run_substrate_path(("embedding_bag",)))
     if "lm" in phases:
         run_lm_path()
+    if "train" in phases:
+        add(run_train_path(("rating_segment_sum_batch",)))
     if "--profile" in sys.argv[1:]:
         for design, k in (("ibm08_like", 64), ("ibm01_like", 16)):
             profile_main_path(design, k)

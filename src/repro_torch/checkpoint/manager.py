@@ -6,7 +6,13 @@
   tree paths, shapes and dtypes, and the caller's ``extra`` dict).  The
   format is the reference's, and so are the path strings (``['key']`` for
   a dict key, ``[i]`` for a list or tuple index, joined by ``/``), so
-  either package reads the other's snapshots.
+  either package reads the other's snapshots.  A quantised moment
+  (``optim.adamw.QTensor``) is two leaves, ``q`` and ``scale``, under
+  ``[<flat index 0>]`` and ``[<flat index 1>]`` as the reference's pytree
+  flattening names them; its original shape comes from the template on
+  restore, as in the reference.  A bf16 leaf is written as the reference
+  writes one: its 2-byte words as a ``V2`` array, ``bfloat16`` in the
+  manifest.
 * Writes go to ``step_<N>.tmp/`` and are renamed atomically: a crash
   mid-write never corrupts the latest checkpoint, and the next save
   collects the orphaned ``.tmp``.
@@ -32,6 +38,10 @@ import numpy as np
 import torch
 
 from repro_torch.env import resolve_device
+from repro_torch.optim.adamw import QTensor
+
+# the path suffixes of a QTensor's two leaves (jax's FlattenedIndexKey)
+QTENSOR_KEYS = ("[<flat index 0>]", "[<flat index 1>]")
 
 
 def _flatten_with_paths(tree) -> Tuple[List[str], List]:
@@ -47,6 +57,9 @@ def _flatten_with_paths(tree) -> Tuple[List[str], List]:
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 walk(v, path + [f"[{i}]"])
+        elif isinstance(node, QTensor):
+            walk(node.q, path + [QTENSOR_KEYS[0]])
+            walk(node.scale, path + [QTENSOR_KEYS[1]])
         elif node is not None:
             paths.append("/".join(path))
             leaves.append(node)
@@ -66,16 +79,32 @@ def _unflatten(like, leaves):
         return out if isinstance(like, list) else tuple(out)
     if like is None:
         return None
+    if isinstance(like, QTensor):
+        return QTensor(q=next(leaves), scale=next(leaves), shape=like.shape)
     return next(leaves)
 
 
 def _to_host(x) -> np.ndarray:
-    """A host copy of one leaf, safe to write after the caller moves on."""
+    """A host copy of one leaf, safe to write after the caller moves on;
+    a bf16 tensor as its 2-byte words (``V2``)."""
     if torch.is_tensor(x):
         t = x.detach()
         t = t.cpu() if t.device.type != "cpu" else t.clone()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
         return t.numpy()
     return np.array(x)
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    return "bfloat16" if a.dtype == np.dtype("V2") else str(a.dtype)
+
+
+def _to_tensor(a: np.ndarray, dtype_name: str) -> torch.Tensor:
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 class CheckpointManager:
@@ -105,7 +134,7 @@ class CheckpointManager:
                 "step": step,
                 "paths": paths,
                 "shapes": [list(a.shape) for a in host_leaves],
-                "dtypes": [str(a.dtype) for a in host_leaves],
+                "dtypes": [_dtype_name(a) for a in host_leaves],
                 "extra": extra or {},
                 "time": time.time(),
             }
@@ -194,11 +223,11 @@ class CheckpointManager:
                              f"{len(ref_leaves)}")
         dev = None if device is None else resolve_device(device)
         placed = []
-        for a, ref in zip(leaves, ref_leaves):
+        for a, ref, dt in zip(leaves, ref_leaves, manifest["dtypes"]):
             if dev is not None:
-                placed.append(torch.from_numpy(a).to(dev))
+                placed.append(_to_tensor(a, dt).to(dev))
             elif torch.is_tensor(ref):
-                placed.append(torch.from_numpy(a).to(ref.device))
+                placed.append(_to_tensor(a, dt).to(ref.device))
             else:
                 placed.append(a)
         return _unflatten(state_like, iter(placed)), manifest["extra"]

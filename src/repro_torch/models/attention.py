@@ -1,13 +1,13 @@
 """Attention of the LM (port of ``repro.models.attention``): the blocked
-flash attention forward (an online softmax over KV blocks, computed in
-f32 from upcast q/k/v) and the one-token decode attention over a KV
-cache.
+flash attention (an online softmax over KV blocks, computed in f32 from
+upcast q/k/v) with its O(S)-memory backward, and the one-token decode
+attention over a KV cache.
 
-The reference has no fused kernel here: both are plain array programs,
-and so are these.  The flash backward (the reference's custom VJP,
-``_flash_bwd``) belongs to training; ``flash_forward`` returns the
-``(out, lse)`` pair it needs, so that a ``torch.autograd.Function`` can
-wrap it.
+The reference has no fused kernel here: all are plain array programs,
+and so are these.  ``_Flash`` is the reference's custom VJP as a
+``torch.autograd.Function``: the forward saves only ``(q, k, v, out,
+lse)``, and ``flash_backward`` recomputes each KV block's scores, so no
+``[S, S]`` residual is ever stored.
 """
 from __future__ import annotations
 
@@ -75,15 +75,82 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype), lse
 
 
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                   causal: bool, block_kv: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's ``_flash_bwd``, in f32: per KV block the scores are
+    recomputed, ``p = exp(s - lse)``, and ``dv``, ``dp``, ``ds = p * (dp
+    - delta) * scale``, ``dk`` follow; ``dq`` accumulates over the
+    blocks.  Returns (dq, dk, dv) in the dtypes of (q, k, v).
+
+    Under ``causal`` the query rows before a block's first key see none
+    of its keys (their ``p`` is exactly 0), so each block's products
+    start at that row: the same terms as the reference's, without the
+    masked half of the work."""
+    b, sq, h, dh = q.shape
+    skv = k.shape[1]
+    nb = max(skv // block_kv, 1)
+    bkv = skv // nb
+    kb, vb = _blocked(k, nb), _blocked(v, nb)
+    scale = _scale(dh)
+    q32 = q.to(torch.float32)
+    do = dout.to(torch.float32).transpose(1, 2)              # [B, H, Sq, dh]
+    delta = (do * out.to(torch.float32).transpose(1, 2)).sum(dim=-1)
+    q_pos = torch.arange(sq, device=q.device)
+    dq = torch.zeros((b, sq, h, dh), dtype=torch.float32, device=q.device)
+    dkb, dvb = [], []
+    for bi in range(nb):
+        q0 = min(bi * bkv, sq) if causal else 0
+        kblk = kb[bi].to(torch.float32)
+        vblk = vb[bi].to(torch.float32)
+        qs, dos = q32[:, q0:], do[:, :, q0:]
+        s = torch.einsum("bqhd,bkhd->bhqk", qs, kblk) * scale
+        if causal:
+            k_pos = bi * bkv + torch.arange(bkv, device=q.device)
+            s = torch.where((q_pos[q0:, None] >= k_pos[None, :])[None, None],
+                            s, NEG_INF)
+        p = torch.exp(s - lse[:, :, q0:, None])             # [B, H, Sq, bkv]
+        dvb.append(torch.einsum("bhqk,bhqd->bkhd", p, dos))
+        dp = torch.einsum("bhqd,bkhd->bhqk", dos, vblk)
+        ds = p * (dp - delta[:, :, q0:, None]) * scale
+        dq[:, q0:] += torch.einsum("bhqk,bkhd->bqhd", ds, kblk)
+        dkb.append(torch.einsum("bhqk,bqhd->bkhd", ds, qs))
+    dk = torch.cat(dkb, dim=1)
+    dv = torch.cat(dvb, dim=1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with the reference's custom VJP: q, k, v [B, S, H,
+    dh] with as many KV heads as query heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, block_kv: int):
+        out, lse = flash_forward(q, k, v, causal, block_kv)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.block_kv = causal, block_kv
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, ctx.causal,
+                                    ctx.block_kv)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, block_kv: int = 1024
                     ) -> torch.Tensor:
-    """q: [B, Sq, H, dh]; k, v: [B, Skv, KV, dh], H % KV == 0."""
+    """q: [B, Sq, H, dh]; k, v: [B, Skv, KV, dh], H % KV == 0.  The GQA
+    repeat stays outside ``_Flash``, so autograd sums ``dk``/``dv`` over
+    each query-head group, as the reference's broadcast does."""
     n_rep = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
     block_kv = min(block_kv, k.shape[1])
-    return flash_forward(q, k, v, causal, block_kv)[0]
+    return _Flash.apply(q, k, v, causal, block_kv)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

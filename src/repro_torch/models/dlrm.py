@@ -8,7 +8,14 @@ reference, with each table's ids offset into it (``table_offsets``).
 reference does with ``jnp.take`` outside any kernel.
 ``retrieval_scores`` sums the query's 26 user rows through
 ``kernels.ops.embedding_bag``: kernel #9 on the card, its plain version
-on the CPU.  The loss functions come with training.
+on the CPU.
+
+Training (the reference's losses): ``param_tree(model)`` lists the
+parameters as the reference's tree (``{"tables", "bot", "top"}``);
+``forward``, ``loss_fn`` and ``loss_from_rows`` take that tree.
+``loss_from_rows`` takes the gathered rows [B, S, D] as an explicit
+argument, so autograd gives a row gradient instead of a dense table
+gradient: the enabler of the sparse (touched-rows-only) update.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ from torch import nn
 from repro_torch.configs.base import DLRMConfig
 from repro_torch.env import resolve_device
 from repro_torch.kernels import ops
-from .layers import MLP, dtype_of
+from .layers import MLP, dtype_of, mlp_apply
 
 
 def table_offsets(cfg: DLRMConfig) -> np.ndarray:
@@ -77,13 +84,7 @@ class DLRM(nn.Module):
                        prefix="top", generator=generator)
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """batch: dense [B, n_dense] f32, sparse_idx [B, n_sparse] int32
-        (already offset into the concatenated table).  Returns logits
-        [B]."""
-        dense_emb = self.bot(batch["dense"])
-        rows = self.tables[batch["sparse_idx"].long()]        # [B, S, D]
-        feats = _interact(dense_emb, rows, self.cfg.interaction)
-        return self.top(feats)[..., 0]
+        return forward(param_tree(self), batch, self.cfg)
 
     def retrieval_scores(self, batch: Dict[str, torch.Tensor]
                          ) -> torch.Tensor:
@@ -103,6 +104,50 @@ class DLRM(nn.Module):
         return ops.embedding_bag(self.tables.detach(),
                                  sparse_idx.to(torch.int32).contiguous(),
                                  combiner="sum")
+
+
+def param_tree(model: DLRM) -> Dict:
+    """The model's parameters in the reference's tree."""
+    return {"tables": model.tables, "bot": model.bot.tree(),
+            "top": model.top.tree()}
+
+
+def _head(other: Dict, dense: torch.Tensor, rows: torch.Tensor,
+          cfg: DLRMConfig) -> torch.Tensor:
+    dense_emb = mlp_apply(other["bot"], dense, len(cfg.bot_mlp),
+                          prefix="bot", final_act=True)
+    feats = _interact(dense_emb, rows, cfg.interaction)
+    return mlp_apply(other["top"], feats, len(cfg.top_mlp),
+                     prefix="top")[..., 0]
+
+
+def forward(params: Dict, batch: Dict[str, torch.Tensor],
+            cfg: DLRMConfig) -> torch.Tensor:
+    """batch: dense [B, n_dense] f32, sparse_idx [B, n_sparse] int32
+    (already offset into the concatenated table).  Returns logits [B]."""
+    rows = params["tables"][batch["sparse_idx"].long()]       # [B, S, D]
+    return _head(params, batch["dense"], rows, cfg)
+
+
+def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    y = labels.to(torch.float32)
+    z = logits.to(torch.float32)
+    return torch.mean(torch.clamp(z, min=0) - z * y
+                      + torch.log1p(torch.exp(-torch.abs(z))))
+
+
+def loss_fn(params: Dict, batch: Dict[str, torch.Tensor],
+            cfg: DLRMConfig) -> torch.Tensor:
+    return _bce(forward(params, batch, cfg), batch["labels"])
+
+
+def loss_from_rows(other_params: Dict, rows: torch.Tensor,
+                   batch: Dict[str, torch.Tensor], cfg: DLRMConfig
+                   ) -> torch.Tensor:
+    """The loss with the gathered rows [B, S, D] as an explicit argument
+    (``other_params``: ``{"bot", "top"}``)."""
+    return _bce(_head(other_params, batch["dense"], rows, cfg),
+                batch["labels"])
 
 
 def init_params(cfg: DLRMConfig, generator: torch.Generator,

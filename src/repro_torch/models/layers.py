@@ -5,9 +5,11 @@ the LM half (``rms_norm``, the rotary embeddings, ``cross_entropy``).
 The reference keeps parameters in dicts of arrays; here they live in
 ``nn.Module``s with the reference's layouts (a dense weight is
 ``[fan_in, fan_out]`` and applied as ``x @ w + b``), so a reference
-parameter dict copies over leaf by leaf (``MLP.load_reference``).
+parameter dict copies over leaf by leaf (``MLP.load_reference``) and
+``MLP.tree`` lists the module's parameters in that dict's layout.
 ``constrain`` and ``with_grad_sharding`` are sharding hints with no
-single-device meaning and are left out.  The LM functions compute in
+single-device meaning and are left out (the latter's cast of a layer's
+weight gradient to the accumulation dtype is the train step's).  The LM functions compute in
 f32 and cast back to their input's dtype, as the reference's do.
 """
 from __future__ import annotations
@@ -35,6 +37,15 @@ def init_dense(shape: Sequence[int], dtype: torch.dtype,
     w = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     w.normal_(generator=generator).mul_(s)
     return w.to(dtype)
+
+
+def tensor_from_reference(a) -> torch.Tensor:
+    """A reference leaf (numpy or a scalar, bf16 included) as a CPU
+    tensor of its dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
 
 
 def batch_to(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -69,12 +80,17 @@ class MLP(nn.Module):
                 torch.zeros(self.dims[i + 1], dtype=dtype, device=device)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n = len(self.weights)
-        for i in range(n):
-            x = x @ self.weights[i] + self.biases[i]
-            if i < n - 1 or self.final_act:
-                x = torch.relu(x)
-        return x
+        return mlp_apply(self.tree(), x, len(self.weights), self.prefix,
+                         self.final_act)
+
+    def tree(self) -> Dict[str, torch.Tensor]:
+        """The parameters as the reference's dict: ``{prefix}{i}`` and
+        ``b{prefix}{i}``."""
+        out = {}
+        for i, (w, b) in enumerate(zip(self.weights, self.biases)):
+            out[f"{self.prefix}{i}"] = w
+            out[f"b{self.prefix}{i}"] = b
+        return out
 
     @torch.no_grad()
     def load_reference(self, params: Dict) -> None:
@@ -84,6 +100,28 @@ class MLP(nn.Module):
                 np.array(params[f"{self.prefix}{i}"])))
             self.biases[i].copy_(torch.from_numpy(
                 np.array(params[f"b{self.prefix}{i}"])))
+
+
+def unstack(tree, n: int) -> list:
+    """A tree of stacked ``[L, ...]`` leaves (nested dicts) -> the ``n``
+    trees of its layer slices.  Each leaf is ``unbind``-ed once, so
+    autograd stacks its gradient once, not once a layer."""
+    if isinstance(tree, dict):
+        subs = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: subs[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor, n: int,
+              prefix: str = "w", final_act: bool = False) -> torch.Tensor:
+    """The reference's ``mlp_apply`` on a ``{prefix}{i}``/``b{prefix}{i}``
+    dict: ``x @ w_i + b_i`` with ReLU between layers and, with
+    ``final_act``, after the last one."""
+    for i in range(n):
+        x = x @ params[f"{prefix}{i}"] + params[f"b{prefix}{i}"]
+        if i < n - 1 or final_act:
+            x = torch.relu(x)
+    return x
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5

@@ -17,25 +17,35 @@ Functions (the reference's serving API; the model carries its config):
   init_cache(cfg, batch, max_seq, device)      -> {"k", "v"}
   decode_step(model, cache, tokens, pos)       -> (logits, cache)
 
+Training (the reference's ``loss_fn``):
+  param_tree(model)                            -> the reference's tree
+  loss_fn(model_or_tree, batch, moe_groups, cfg) -> CE + MoE aux loss
+
+``loss_fn`` runs under autograd: each layer under
+``torch.utils.checkpoint`` when ``cfg.remat`` (the reference's
+``jax.checkpoint(layer)``), the attention through the flash backward,
+and the gradient reaches the stacked ``[L, ...]`` leaves through one
+``unbind`` each (the layers read views of it).
+
 Prefill runs the MoE over ``min(moe_groups, B * S)`` token groups,
 decode over one group of the ``B`` tokens of the step, so a MoE model's
 decode and prefill logits differ by design (capacity per group).  The
-sharding specs and ``loss_fn`` belong to the multi-device and training
-slices.
+sharding specs belong to the multi-device slice.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.env import resolve_device
 from .attention import decode_attention, flash_attention
-from .layers import dtype_of, init_dense, rms_norm, rope_cos_sin, rotate
+from .layers import (cross_entropy, dtype_of, init_dense, rms_norm,
+                     rope_cos_sin, rotate, tensor_from_reference, unstack)
 from .moe import moe_ffn, moe_ffn_grouped
 
 
@@ -112,14 +122,6 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
     return model
 
 
-def _as_tensor(a) -> torch.Tensor:
-    """A reference leaf (numpy, bf16 included) as a CPU tensor."""
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
-
-
 @torch.no_grad()
 def from_reference_params(cfg: LMConfig, params: Dict,
                           device: str | torch.device = "cuda") -> Transformer:
@@ -127,10 +129,17 @@ def from_reference_params(cfg: LMConfig, params: Dict,
     numpy arrays, ``jax.tree.map(np.asarray, init_params(...))``)."""
     model = Transformer(cfg, device)
     for name in ("embed", "lm_head", "final_norm"):
-        getattr(model, name).copy_(_as_tensor(params[name]))
+        getattr(model, name).copy_(tensor_from_reference(params[name]))
     for name, w in model.layers.items():
-        w.copy_(_as_tensor(params["layers"][name]))
+        w.copy_(tensor_from_reference(params["layers"][name]))
     return model
+
+
+def param_tree(model: Transformer) -> Dict:
+    """The model's parameters in the reference's tree: ``{"embed",
+    "lm_head", "final_norm", "layers": {leaf: [L, ...]}}``."""
+    return {"embed": model.embed, "lm_head": model.lm_head,
+            "final_norm": model.final_norm, "layers": dict(model.layers)}
 
 
 # --------------------------------------------------------------------------
@@ -177,20 +186,35 @@ def _block(x: torch.Tensor, lp: Dict, cfg: LMConfig, rope, moe_groups: int
     return x + mlp_out, aux
 
 
-def _forward(model: Transformer, tokens: torch.Tensor, moe_groups: int
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] -> logits [B, S, V] (+ the summed MoE aux loss)."""
-    cfg = model.cfg
+def _forward(params: Dict, tokens: torch.Tensor, cfg: LMConfig,
+             moe_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> logits [B, S, V] (+ the summed MoE aux loss);
+    ``params`` is ``param_tree``'s layout."""
     b, s = tokens.shape
-    x = F.embedding(tokens.long(), model.embed)
+    x = F.embedding(tokens.long(), params["embed"])
     rope = rope_cos_sin(torch.arange(s, device=x.device).expand(b, s),
                         cfg.d_head, cfg.rope_theta)
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = _block(x, model.layer(i), cfg, rope, moe_groups)
+    for lp in unstack(params["layers"], cfg.n_layers):
+        def layer(x, lp=lp):
+            return _block(x, lp, cfg, rope, moe_groups)
+        x, a = (checkpoint(layer, x, use_reentrant=False) if remat
+                else layer(x))
         aux = aux + a
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return x @ model.lm_head, aux
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["lm_head"], aux
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], moe_groups: int = 256,
+            cfg: Optional[LMConfig] = None) -> torch.Tensor:
+    """Cross-entropy of ``batch["labels"]`` (over ``batch["mask"]`` when
+    given) plus the MoE aux loss.  ``params``: a ``Transformer``, or
+    ``param_tree``'s layout with ``cfg``."""
+    if isinstance(params, Transformer):
+        params, cfg = param_tree(params), params.cfg
+    logits, aux = _forward(params, batch["tokens"], cfg, moe_groups)
+    return cross_entropy(logits, batch["labels"], batch.get("mask")) + aux
 
 
 # --------------------------------------------------------------------------
@@ -199,7 +223,7 @@ def _forward(model: Transformer, tokens: torch.Tensor, moe_groups: int
 @torch.no_grad()
 def prefill_logits(model: Transformer, tokens: torch.Tensor,
                    moe_groups: int = 256) -> torch.Tensor:
-    return _forward(model, tokens, moe_groups)[0]
+    return _forward(param_tree(model), tokens, model.cfg, moe_groups)[0]
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,

@@ -1,4 +1,4 @@
-"""Optimizers of the substrate (counterpart of ``repro.optim``); so far
-only ``AdamWConfig``."""
-from . import adamw
-from .adamw import AdamWConfig
+"""Optimizers of the substrate (counterpart of ``repro.optim``): AdamW
+with optional int8 moments, the LR schedules, top-k compression."""
+from . import adamw, compression, schedule
+from .adamw import AdamWConfig, QTensor

@@ -29,6 +29,11 @@ through a device loss too, and checkpoints round-trip CUDA tensors
 exactly.  The LM's SMOKE models (f32, TF32 off) are held to their CPU
 runs with rtol and atol 1e-5 (f32 sums over widths of 64 to 256 in
 another order on the card), and the MoE's routing masks bit for bit.
+Training: the flash backward is held to autograd of the plain
+attention in f64 and to the CPU with rtol 1e-5, atol 1e-5; AdamW's
+moments (int8 ones included) bit for bit to the CPU under the clip, its
+parameters rtol 1e-6; the DLRM sparse step gives the same bits twice
+(its duplicate-row sums go through #4).
 """
 import ast
 from pathlib import Path
@@ -929,6 +934,136 @@ def test_moe_dispatch_masks_on_card_equal_cpu(card, g, t, e, cf):
     assert torch.equal(got.onehot.cpu(), want.onehot)
     assert torch.equal(got.dispatch.cpu(), want.dispatch)
     assert float(want.dispatch.sum()) < g * t * 2 or cf > 1
+
+
+# --------------------------------------------------------------------------
+# training: the flash backward, AdamW, the DLRM sparse step
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_on_card_equals_plain_attention(card, causal):
+    """The flash backward (f32, TF32 off) on the card against autograd of
+    the plain softmax attention in f64 on the card, and against the same
+    function on the CPU: rtol 1e-5, atol 1e-5 (f32 sums in another order:
+    ``dk``/``dv`` add up to 1,024 terms of order 1 over the queries and a
+    KV head's 4 query heads)."""
+    from repro_torch.models import attention
+    rng = np.random.default_rng(3)
+    b, s, h, kv, dh, blk = 2, 256, 8, 2, 64, 64
+    host = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            for shape in ((b, s, h, dh), (b, s, kv, dh), (b, s, kv, dh),
+                          (b, s, h, dh))]
+    grads = []
+    for dev in (card, torch.device("cpu")):
+        q, k, v = (t.to(dev, copy=True).requires_grad_(True)
+                   for t in host[:3])
+        attention.flash_attention(q, k, v, causal=causal,
+                                  block_kv=blk).backward(host[3].to(dev))
+        grads.append([t.grad.cpu() for t in (q, k, v)])
+    q, k, v = (t.to(card, torch.float64, copy=True).requires_grad_(True)
+               for t in host[:3])
+    kr, vr = (t.repeat_interleave(h // kv, dim=2) for t in (k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, kr) / np.sqrt(dh)
+    if causal:
+        sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool,
+                                        device=card).tril(), float("-inf"))
+    torch.einsum("bhqk,bkhd->bqhd", sc.softmax(-1), vr).backward(
+        host[3].to(card).double())
+    plain = [t.grad.float().cpu() for t in (q, k, v)]
+    for got, cpu, want in zip(grads[0], grads[1], plain):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got, cpu, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_adamw_step_on_card_equals_cpu(card, quant):
+    """Three AdamW steps on the card and on the CPU from one state: the
+    moments (int8 ``q`` and its scales) bit for bit while the gradient
+    norm stays under the clip (the same f32 products and sums, one op at
+    a time), the parameters (bf16 leaf included) rtol 1e-6 (``b ** step``
+    may differ by an ulp)."""
+    from repro_torch.optim import adamw
+    rng = np.random.default_rng(4)
+    cfg = adamw.AdamWConfig(quantize_moments=quant)
+    host = {"layers": {"w": rng.normal(size=(2, 64, 300))},
+            "emb": rng.normal(size=(40, 16)), "s": rng.normal(size=())}
+    runs = []
+    for dev in (card, torch.device("cpu")):
+        params = {"layers": {"w": torch.tensor(host["layers"]["w"],
+                                               dtype=torch.float32,
+                                               device=dev)},
+                  "emb": torch.tensor(host["emb"], dtype=torch.bfloat16,
+                                      device=dev),
+                  "s": torch.tensor(host["s"], dtype=torch.float32,
+                                    device=dev)}
+        state = adamw.init(params, cfg)
+        g_rng = np.random.default_rng(5)
+        for _ in range(3):
+            grads = adamw.tree_map(lambda p: torch.tensor(
+                g_rng.normal(scale=1e-3, size=tuple(p.shape)),
+                dtype=torch.float32, device=dev), params)
+            params, state, m = adamw.update(grads, state, params, cfg, 0.5)
+        assert float(m["grad_norm"]) < cfg.grad_clip
+        runs.append((params, state))
+    (pc, sc), (pp, sp) = runs
+    for a, b in zip(adamw.tree_leaves(pc), adamw.tree_leaves(pp)):
+        torch.testing.assert_close(a.cpu().float(), b.float(), rtol=1e-6,
+                                   atol=1e-7)
+    for name in ("m", "v"):
+        for a, b in zip(adamw.tree_leaves(sc[name]),
+                        adamw.tree_leaves(sp[name])):
+            if quant:
+                assert torch.equal(a.q.cpu(), b.q)
+                assert torch.equal(a.scale.cpu(), b.scale)
+            else:
+                assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_dlrm_sparse_step_is_bit_stable_through_rating_kernel(card):
+    """The DLRM sparse train step (SMOKE config, batch 512) run twice on
+    the card from one state gives the same bits, launches the batched
+    rating kernel (#4) for its duplicate-row sums, and stays within rtol
+    1e-5, atol 1e-7 of the CPU run (f32 products in another order)."""
+    import dataclasses as dc
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.recsys import click_batch
+    from repro_torch.models import dlrm
+    from repro_torch.models.layers import batch_to
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    aid = "dlrm-mlperf"
+    cfg = registry.SMOKES[aid]
+    spec = dc.replace(registry.get_arch(aid), config=cfg)
+    shape = ShapeSpec("t", "train_batch", (("batch", 512),))
+    cell = steps.dlrm_train_cell(spec, shape, registry.get_opt(aid),
+                                 sparse_update=True)
+    base = dlrm.param_tree(dlrm.init_params(
+        cfg, torch.Generator("cpu").manual_seed(1), device="cpu"))
+
+    def run(dev):
+        params = adamw.tree_map(lambda p: p.detach().clone().to(dev), base)
+        state = {"params": params,
+                 "opt": adamw.init(params, registry.get_opt(aid))}
+        state["opt"]["step"].fill_(200)
+        for i in range(2):
+            state, m = cell.fn(state, batch_to(click_batch(cfg, 512,
+                                                           seed=i), dev))
+        return state, m
+
+    ops.reset_launch_counts()
+    a, _ = run(card)
+    assert ops.launch_counts()["rating_segment_sum_batch"] == 2
+    b, _ = run(card)
+    cpu, _ = run(torch.device("cpu"))
+    la, lb, lc = (adamw.tree_leaves(x) for x in (a, b, cpu))
+    for x, y, z in zip(la, lb, lc):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x.cpu(), z, rtol=1e-5, atol=1e-7)
+    idx = click_batch(cfg, 512, seed=0)["sparse_idx"]
+    assert idx.size > np.unique(idx).size           # duplicate rows
 
 
 # --------------------------------------------------------------------------

@@ -190,7 +190,7 @@ def test_gnn_init_draws_from_generator():
                               device=CPU) for _ in range(2)]
     for a, b in zip(models[0].parameters(), models[1].parameters()):
         assert torch.equal(a, b)
-    w = models[0].layers[0].p["A"]
+    w = models[0].layers.p["A"][0]
     assert abs(float(w.detach().std()) * np.sqrt(cfg.d_hidden) - 1.0) < 0.2
     host = jgraphs.full_graph_batch(100, 400, 12, 8, seed=0,
                                     need_edge_feat=1)
