@@ -23,8 +23,9 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    library yardstick, and compute the least time the card could take;
 4. the tests marked ``cuda`` in ``tests/test_torch_card.py``, run by
    pytest in a child process (``--noconftest``: the suite's conftest
-   imports JAX, which this machine need not have); any failure, error or
-   skip, or fewer passes than cases marked ``cuda``, fails the phase;
+   imports JAX, which this machine need not have) beside phases 5 to 9;
+   any failure, error or skip, or fewer passes than cases marked
+   ``cuda``, fails the phase;
 5. a small instance refined on the card and on the CPU under host
    coarsening must give the same partition and cut;
 6. the memetic-off paths: ``impart_partition`` without recombination,
@@ -33,20 +34,21 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    kernel);
 7. the memetic path: ``impart_partition`` on ``ibm08_like`` at k=64 with
    the reference defaults (alpha 7, recombination, mutation, one final
-   V-cycle) but beta ``MEMETIC_BETA`` (3, not 7), with its recombination
+   V-cycle) but beta ``MEMETIC_BETA`` (1, not 7), with its recombination
    branches counted and its time split into recombination, mutation,
    final V-cycle and the rest;
 8. the partition CLI: ``python -m repro_torch.launch.partition --method
-   multilevel`` in a child process on ``ibm08_like`` (k=64, one-member
-   stream kernel) and ``ibm01_like`` (k=16, one-member table kernel); its
-   saved assignment is reloaded and checked;
+   multilevel`` in two child processes started at once, on
+   ``ibm08_like`` (k=64, one-member stream kernel) and ``ibm01_like``
+   (k=16, one-member table kernel); each saved assignment is reloaded
+   and checked;
 9. the public kernel ops (``kernels.ops.connectivity``, ``cutsize`` and
    ``embedding_bag``): connectivity and cut of a k=32 partition of
    ``ibm08_like``'s pin matrix, and one DLRM embedding bag (26 sparse
    features x 65,536 bags, D=128, the MLPerf cardinalities capped at
    2**20 rows);
 10. the bandit operator schedule on ``ibm01_like`` (k=16, the reference
-   defaults but beta ``SCHED_BETA``, 3): the static schedule's wall W, a ``sched="bandit"`` run with
+   defaults but beta ``SCHED_BETA``, 1): the static schedule's wall W, a ``sched="bandit"`` run with
    ``time_budget_s=W``, and the replay of its trace after a JSON
    round-trip, which must give the live partition, cut and arm sequence
    bit for bit;
@@ -79,7 +81,20 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    ibm08 in one 4-slot service, each bit-equal to solo and checked on the
    host and on the card; and the reference's robustness soak (six fault
    plans, device loss included), every fault fired, every request in a
-   terminal state and every completed answer bit-equal to solo;
+   terminal state and every completed answer bit-equal to solo; and
+   F5's grouping (ibm01_like beside ibm08_like cold and its refresh,
+   admitted at once), each answer bit-equal to solo;
+13b. the population axis over a pool of logical shards of the card
+   (``popshard.set_logical_shards``, the counterpart of the reference's
+   forced host devices; DESIGN.md §11): ``refine_population`` under the
+   ``mesh`` route at a pool of 1 and the ``mesh`` and ``chunk`` routes at
+   pools of 2 and 4, on ibm01_like (k 16, the finest level and the first
+   FM level) and ibm08_like (k 64), with integer weights and mutation's
+   real-valued member rows; ``ring_partners`` over the shards; the
+   memetic ``impart_partition`` on ibm01_like over 4 shards; and
+   ``impart_partition_instances`` on the three ISPD98-sized requests
+   under both routes over 4 shards; all bit-equal to the ``off`` route,
+   each route's wall printed beside the card;
 14. the placement substrate's serving path (``repro_torch.models``,
    ``repro_torch.apps.placement``): DLRM at the MLPerf width (each table
    capped at ``SUBSTRATE_ROW_CAP`` rows) at serve_p99, serve_bulk and
@@ -136,7 +151,7 @@ its cut once more on the card through ``ops.connectivity`` and
 the ops route), which must agree with the host.
 
 ``--phases`` takes a comma list of
-``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances,incremental,service,substrate,lm,train``
+``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances,incremental,service,popshard,substrate,lm,train``
 (default: all; empty for none) for runs that debug one phase; the kernels line is only printed
 when every phase ran.  ``--repair-cost=DIR`` then times the static
 memetic run of the ``sched`` phase with its mutation seconds on the
@@ -162,6 +177,7 @@ printing any result.
 """
 from __future__ import annotations
 
+import atexit
 import gc
 import itertools
 import json
@@ -200,8 +216,8 @@ KERNEL_META = {
                       "src/repro/kernels/embedding_bag.py:66"),
 }
 PHASES = ("kernels", "cardtests", "parity", "off", "memetic", "cli", "ops",
-          "sched", "instances", "incremental", "service", "substrate", "lm",
-          "train")
+          "sched", "instances", "incremental", "service", "popshard",
+          "substrate", "lm", "train")
 
 # the largest level FM refines (``refine.refine_population``'s default)
 FM_NODE_LIMIT = 4096
@@ -210,9 +226,12 @@ FM_NODE_LIMIT = 4096
 # and of the sched phase's three runs (static, bandit, replay), cut to
 # keep the whole script well inside its 1,200 s with the substrate
 # phase: on one H100 host it took 1,199 s of command at 7 and 7, and
-# 1,128 s at 5 and 3
-MEMETIC_BETA = 3
-SCHED_BETA = 3
+# 1,128 s at 5 and 3; both went to 1 beside the popshard phase (the
+# script took 1,386 s at 1 and 3 with it on one H100 host; at 3 the
+# memetic ibm08 run took 104.3 s, 102.5 s of it recombination, and a
+# sched run 44.8-49.2 s)
+MEMETIC_BETA = 1
+SCHED_BETA = 1
 
 # MLPerf DLRM (Criteo 1TB): 26 sparse features, embed_dim 128, the table
 # cardinalities of the reference's dlrm_mlperf config, each capped here
@@ -1088,14 +1107,16 @@ def check_fixed_order_sums(dev):
     twice("graphed FM pass (edge_weights_pop)",
           lambda: refine._fm_pass_population_impl(
               hga, parts, k, cap, 2 * refine.FM_FLAG_EVERY, ew))
-    # each pass: one eager warm-up step before the capture, then one #4
-    # launch per step of every replay; the capture itself counts none
+    # each pass: one launch for its starting cut (the fixed-order sum of
+    # the member rows), one eager warm-up step before the capture, then
+    # one #4 launch per step of every replay; the capture counts none
     n4 = ops.launch_counts()["rating_segment_sum_batch"]
     print(f"[determinism] two graphed FM passes of {2 * refine.FM_FLAG_EVERY}"
           f" steps: {n4} launches of rating_segment_sum_batch counted")
-    if n4 % refine.FM_FLAG_EVERY != 2 or n4 < 2 + 2 * refine.FM_FLAG_EVERY:
+    if n4 % refine.FM_FLAG_EVERY != 4 or n4 < 4 + 2 * refine.FM_FLAG_EVERY:
         raise AssertionError(f"graphed FM passes counted {n4} launches of "
-                             "#4, not 2 warm-ups plus 32 per replay")
+                             "#4, not 2 starting cuts, 2 warm-ups and 32 "
+                             "per replay")
     # the atomics the repair replaces, for the record: the segsum
     # assembly's per-vertex sums with ``index_add_``
     phi = metrics.pins_in_block_population(hga, parts, k)
@@ -1115,43 +1136,71 @@ def check_fixed_order_sums(dev):
 CARD_TESTS = os.path.join("tests", "test_torch_card.py")
 
 
-def run_card_tests() -> None:
+class CardTests:
     """Phase ``cardtests``: the tests marked ``cuda`` in
     ``tests/test_torch_card.py``, run by pytest in a child process on this
-    card.  ``--noconftest`` keeps out ``tests/conftest.py``, which imports
-    JAX (absent here).  Fails on any failure, error or skip, and when the
-    run counts fewer passes than the module has cases marked ``cuda``
-    (counted by a collection of the same selection)."""
-    import xml.etree.ElementTree as ET
-    cmd = [sys.executable, "-m", "pytest", "-q", "--noconftest", "-p",
-           "no:cacheprovider", "-m", "cuda", CARD_TESTS]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    listed = subprocess.run(cmd + ["--collect-only"], capture_output=True,
-                            text=True, cwd=ROOT, env=env, timeout=300)
-    marked = sum("::" in line for line in listed.stdout.splitlines())
-    if listed.returncode != 0 or marked == 0:
-        raise AssertionError(f"collecting {CARD_TESTS} exited "
-                             f"{listed.returncode} with {marked} cases:\n"
-                             f"{listed.stdout[-3000:]}{listed.stderr[-2000:]}")
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        xml = os.path.join(tmp, "card.xml")
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd + [f"--junitxml={xml}"], capture_output=True,
-                              text=True, cwd=ROOT, env=env, timeout=900)
-        wall = time.perf_counter() - t0
-        root = ET.parse(xml).getroot() if os.path.exists(xml) else None
-    suite = root if root is None or root.tag == "testsuite" else root[0]
-    count = {key: int(suite.get(key, 0)) if suite is not None else 0
-             for key in ("tests", "failures", "errors", "skipped")}
-    passed = (count["tests"] - count["failures"] - count["errors"]
-              - count["skipped"])
-    if (proc.returncode != 0 or count["failures"] or count["errors"]
-            or count["skipped"] or passed < marked):
-        raise AssertionError(
-            f"card tests: exit {proc.returncode}, {count}, {marked} cases "
-            f"marked cuda:\n{proc.stdout[-6000:]}{proc.stderr[-2000:]}")
-    print(f"[cardtests] {passed} passed, {count['skipped']} skipped "
-          f"({marked} cases marked cuda in {CARD_TESTS}; {wall!r} s)")
+    card, started by the constructor and checked by ``finish``, so the
+    phases between run beside it.  ``--noconftest`` keeps out
+    ``tests/conftest.py``, which imports JAX (absent here).  Fails on any
+    failure, error or skip, and when the run counts fewer passes than the
+    module has cases marked ``cuda`` (counted by a collection of the same
+    selection)."""
+
+    def __init__(self):
+        cmd = [sys.executable, "-m", "pytest", "-q", "--noconftest", "-p",
+               "no:cacheprovider", "-m", "cuda", CARD_TESTS]
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        listed = subprocess.run(cmd + ["--collect-only"],
+                                capture_output=True, text=True, cwd=ROOT,
+                                env=env, timeout=300)
+        self.marked = sum("::" in line for line in listed.stdout.splitlines())
+        if listed.returncode != 0 or self.marked == 0:
+            raise AssertionError(
+                f"collecting {CARD_TESTS} exited {listed.returncode} with "
+                f"{self.marked} cases:\n{listed.stdout[-3000:]}"
+                f"{listed.stderr[-2000:]}")
+        self.tmp = tempfile.TemporaryDirectory(dir=ROOT)
+        self.xml = os.path.join(self.tmp.name, "card.xml")
+        self.log = open(os.path.join(self.tmp.name, "card.log"), "w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd + [f"--junitxml={self.xml}"],
+                                     cwd=ROOT, env=env, stdout=self.log,
+                                     stderr=subprocess.STDOUT)
+        # a phase that fails before ``finish`` must not leave it running
+        atexit.register(self.stop)
+
+    def finish(self) -> None:
+        import xml.etree.ElementTree as ET
+        try:
+            rc = self.proc.wait(timeout=900)
+            wall = time.perf_counter() - self.t0
+            self.log.seek(0)
+            out = self.log.read()
+            root = (ET.parse(self.xml).getroot()
+                    if os.path.exists(self.xml) else None)
+        finally:
+            self.stop()
+        suite = root if root is None or root.tag == "testsuite" else root[0]
+        count = {key: int(suite.get(key, 0)) if suite is not None else 0
+                 for key in ("tests", "failures", "errors", "skipped")}
+        passed = (count["tests"] - count["failures"] - count["errors"]
+                  - count["skipped"])
+        if (rc != 0 or count["failures"] or count["errors"]
+                or count["skipped"] or passed < self.marked):
+            raise AssertionError(
+                f"card tests: exit {rc}, {count}, {self.marked} cases "
+                f"marked cuda:\n{out[-8000:]}")
+        print(f"[cardtests] {passed} passed, {count['skipped']} skipped "
+              f"({self.marked} cases marked cuda in {CARD_TESTS}; {wall!r} "
+              "s, beside the phases parity to ops)")
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if not self.log.closed:
+            self.log.close()
+            self.tmp.cleanup()
 
 
 def check_small_parity():
@@ -1393,40 +1442,61 @@ print("[launches] " + json.dumps(ops.launch_counts()), flush=True)
 """
 
 
-def run_cli(design: str, k: int, must_launch, eps: float = 0.08):
-    """The partition CLI's ``multilevel`` method in a child process (the
+def run_cli(runs, eps: float = 0.08):
+    """The partition CLI's ``multilevel`` method in a child process per
+    ``(design, k, must_launch)`` of ``runs``, all started at once (the
     CLI's ``main``, with the child's launch counters zeroed just before
-    it and printed just after), then its saved assignment reloaded and
-    its cut and balance recomputed in numpy."""
+    it and printed just after), then each saved assignment reloaded and
+    its cut and balance recomputed in numpy.  Returns the launches of
+    every run and of its cut check."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    started = []
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        try:
+            for design, k, _ in runs:
+                out = os.path.join(tmp, f"{design}.npy")
+                args = ["--method", "multilevel", "--alpha", "1", "--scale",
+                        "1.0", "--design", design, "--k", str(k), "--eps",
+                        str(eps), "--out", out]
+                started.append((subprocess.Popen(
+                    [sys.executable, "-c", _CLI_CHILD, *args],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True, env=env, cwd=ROOT), out, time.perf_counter()))
+            total = {}
+            for (design, k, must), (proc, out, t0) in zip(runs, started):
+                stdout, stderr = proc.communicate(timeout=600)
+                _add_counts(total, _cli_result(
+                    design, k, must, eps, proc.returncode, stdout, stderr,
+                    out, time.perf_counter() - t0))
+        finally:
+            for proc, _, _ in started:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return total
+
+
+def _cli_result(design: str, k: int, must_launch, eps: float, rc: int,
+                stdout: str, stderr: str, out: str, wall: float) -> dict:
+    """One CLI child's output, its saved assignment at ``out`` and its
+    cut on the host and on the card, checked; returns its launches."""
     import numpy as np
     from repro_torch.data.hypergraphs import ispd_like
-    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        out = os.path.join(tmp, "part.npy")
-        args = ["--method", "multilevel", "--alpha", "1", "--scale", "1.0",
-                "--design", design, "--k", str(k), "--eps", str(eps),
-                "--out", out]
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", _CLI_CHILD, *args],
-                              capture_output=True, text=True, env=env,
-                              cwd=ROOT, timeout=600)
-        wall = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
-            print(f"[cli] {design} k={k} | {line}")
-        if proc.returncode != 0:
-            raise AssertionError(f"CLI exited {proc.returncode}: "
-                                 f"{proc.stderr[-2000:]}")
-        part = np.load(out)
-    counts = json.loads([ln for ln in proc.stdout.splitlines()
+    for line in stdout.splitlines():
+        print(f"[cli] {design} k={k} | {line}")
+    if rc != 0:
+        raise AssertionError(f"CLI exited {rc}: {stderr[-2000:]}")
+    part = np.load(out)
+    counts = json.loads([ln for ln in stdout.splitlines()
                          if ln.startswith("[launches] ")][-1][11:])
-    printed = [ln for ln in proc.stdout.splitlines()
+    printed = [ln for ln in stdout.splitlines()
                if "multilevel: cut=" in ln][-1]
     printed_cut = float(printed.split("cut=")[1].split()[0])
     hg = ispd_like(design, 1.0)
     cut, balanced, bw_max, cap = host_cut_and_balance(hg, part, k, eps)
-    print(f"[cli] {design} k={k} child wall_s {wall!r} host cut {cut!r} "
-          f"printed cut {printed_cut!r} max block weight {bw_max!r} cap "
-          f"{cap!r}")
+    print(f"[cli] {design} k={k} child wall_s {wall!r} (beside the other "
+          f"child) host cut {cut!r} printed cut {printed_cut!r} max block "
+          f"weight {bw_max!r} cap {cap!r}")
     # the saved assignment's cut on the card, counted with the child's
     check = card_cut_check(hg, part, k, cut, f"CLI {design}")
     if cut != printed_cut or not balanced:
@@ -1559,6 +1629,7 @@ def run_sched_path(design: str, k: int, must_launch, cohort_launch=(),
           f"beta={beta} final_vcycles=1 seed=0")
     static, w_static, cohorts_static = drive(
         "static", ImpartConfig(sched="static", **common))
+    _SHARED_RUNS[("sched static", design, k, eps, beta)] = static
     live, w_live, cohorts = drive("bandit", ImpartConfig(
         sched="bandit", time_budget_s=w_static, **common))
     trace = live.sched_trace
@@ -1608,6 +1679,9 @@ def run_sched_path(design: str, k: int, must_launch, cohort_launch=(),
 # the third, bench-2's 620 vertices at k 6, so (a) takes 2 beside the
 # train phase), and the serving buckets of its grid
 INSTANCE_REQUESTS = 6
+# single-device runs that a later phase holds its routes to: the static
+# memetic run of ``sched`` (``popshard`` (c))
+_SHARED_RUNS: dict = {}
 INSTANCE_STREAM = 2
 INSTANCE_BANDIT = 2
 INSTANCE_GRID = (1024, 4096, 16384, 65536)
@@ -1680,6 +1754,29 @@ json.dump(out, open(sys.argv[2], "w"))
 """
 
 
+# the solo ISPD98 runs of the instances phase's (b): ``cfg`` names the
+# design beside the config's keywords
+_ISPD_SOLO_CHILD = """
+import json, sys, time
+import torch
+from repro_torch.core.impart import ImpartConfig, impart_partition
+from repro_torch.data.hypergraphs import ispd_like
+spec = json.load(open(sys.argv[1]))
+out = []
+for job in spec["jobs"]:
+    cfg = dict(job["cfg"])
+    hg = ispd_like(cfg.pop("design"), 1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = impart_partition(hg, ImpartConfig(**cfg), device="cuda")
+    torch.cuda.synchronize()
+    out.append(dict(index=job["index"], wall=time.perf_counter() - t0,
+                    part=res.part.tolist(), cut=res.cut,
+                    population_cuts=res.population_cuts))
+json.dump(out, open(sys.argv[2], "w"))
+"""
+
+
 class _SoloChildren:
     """Solo runs of stream requests on the card, in ``procs`` child
     processes started at once (request j in child j % procs), so they run
@@ -1744,8 +1841,9 @@ def run_instances_path(must_launch):
     the solo runs go in ``INSTANCE_CHILDREN`` child processes on the
     card beside the grouped run, so their walls are not walls alone;
     (b) three ISPD98-sized requests at full published size, memetic
-    operators off, the same bar, the grouped wall printed beside the
-    solo walls (all in this process, one after another); (c) one
+    operators off, the same bar, the solo runs in ``INSTANCE_CHILDREN``
+    child processes beside the grouped run (so neither wall is a wall
+    alone); (c) one
     ``refine_grouped`` call on the first levels with n <= 4,096 of the
     three requests' hierarchies, which must launch the ``table`` gain
     kernel and equal each entry's solo ``refine_population``; (d) the
@@ -1826,22 +1924,29 @@ def run_instances_path(must_launch):
           f"{INSTANCE_CHILDREN} child processes beside it, sum "
           f"{sum(s['wall'] for s in solos.values())!r} s (not walls alone)")
 
-    # (b) ISPD98-sized requests, memetic operators off, solo runs after
+    # (b) ISPD98-sized requests, memetic operators off, solo runs in
+    # child processes beside the grouped run
     ispd = [ispd_like(name, 1.0) for name, _ in INSTANCE_ISPD]
-    ispd_cfgs = [ImpartConfig(k=k, eps=0.03, alpha=7, sched="static",
-                              recombination_enabled=False,
-                              mutation_enabled=False)
-                 for _, k in INSTANCE_ISPD]
-    res_b, wall_b = grouped("ispd", ispd, ispd_cfgs)
-    walls = []
+    ispd_kw = [dict(k=k, eps=0.03, alpha=7, sched="static",
+                    recombination_enabled=False, mutation_enabled=False)
+               for _, k in INSTANCE_ISPD]
+    ispd_cfgs = [ImpartConfig(**kw) for kw in ispd_kw]
+    children = _SoloChildren(
+        [(i, dict(design=name, **kw))
+         for i, ((name, _), kw) in enumerate(zip(INSTANCE_ISPD, ispd_kw))],
+        INSTANCE_CHILDREN, "instances ispd", _ISPD_SOLO_CHILD)
+    try:
+        res_b, wall_b = grouped("ispd", ispd, ispd_cfgs)
+        solos_b = children.results()
+    finally:
+        children.stop()
     for i, (hg, cfg, res) in enumerate(zip(ispd, ispd_cfgs, res_b)):
-        solo, w, _ = timed(lambda: impart_partition(hg, cfg, device="cuda"))
-        walls.append(w)
-        check_request("ispd", i, hg, cfg, res, dict(
-            part=solo.part, cut=solo.cut,
-            population_cuts=solo.population_cuts), w)
-    print(f"[instances] ispd walls: grouped {wall_b!r} s, solo sum "
-          f"{sum(walls)!r} s (single runs, no claim)")
+        check_request("ispd", i, hg, cfg, res, solos_b[i],
+                      solos_b[i]["wall"])
+    print(f"[instances] ispd walls: grouped {wall_b!r} s; solo runs in "
+          f"{INSTANCE_CHILDREN} child processes beside it, sum "
+          f"{sum(s['wall'] for s in solos_b.values())!r} s (not walls "
+          "alone)")
 
     # (c) one grouped refinement on its own
     entries, solos_c = [], []
@@ -2398,11 +2503,12 @@ def run_service_path(must_launch):
     if idle:
         raise AssertionError(f"service full width: kernels never launched "
                              f"by the served run: {idle}")
-    solo_walls = []
+    solo_walls, solo_full = [], {}
     for req in full:
         res = svc.results[req.name]
         (part, cut), w, _ = timed(lambda: svc.solve_solo(req), serve=False)
         solo_walls.append(w)
+        solo_full[req.name] = (part, cut)
         hg = req.hg
         rel = INCR_REL if req.incumbent is not None else 0.0
         hcut, balanced, bw_max, cap = host_cut_and_balance(
@@ -2432,6 +2538,30 @@ def run_service_path(must_launch):
                                  f"host {hcut}, balanced={balanced}")
     print(f"[service] full width: served {wall!r} s, solo sum "
           f"{sum(solo_walls)!r} s (single runs, no claim)")
+
+    # the F5 gate: ibm01_like beside ibm08_like cold and its refresh,
+    # admitted at once, so the refresh (real-valued drifted weights)
+    # shares a stack with ibm08's cold solve
+    f5 = [full[0], full[3], full[4]]
+    svc_f5 = PartitionService(slots=4, alpha=4, lp_iters=8, sched="static",
+                              device="cuda")
+
+    def serve_f5():
+        for req in f5:
+            svc_f5.submit(req)
+        svc_f5.drain()
+    _, wall, counts = timed(serve_f5)
+    bad = [req.name for req in f5
+           if svc_f5.results[req.name].status != "ok"
+           or not same(svc_f5.results[req.name], *solo_full[req.name])]
+    print(f"[service] F5 grouping ({', '.join(r.name for r in f5)} "
+          f"admitted at once): wall_s {wall!r}, {svc_f5.tick} ticks, "
+          f"refresh cut {svc_f5.results[f5[2].name].cut!r} solo "
+          f"{solo_full[f5[2].name][1]!r}; every answer == solo (parts and "
+          f"cut): {not bad}; launches {short(counts)}")
+    if bad:
+        raise AssertionError(f"service F5 grouping: answers differ from "
+                             f"solve_solo: {bad}")
 
     # (c) the robustness soak
     soak = []
@@ -2501,6 +2631,203 @@ def run_service_path(must_launch):
     missing = [n for n in must_launch if path_total.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"service path: kernels never launched: "
+                             f"{missing}")
+    return total
+
+
+# the popshard phase: the population axis over pools of P logical shards
+# of the card, the counterpart of the reference's forced host devices
+# (``popshard.set_logical_shards``); every route is held to the ``off``
+# route bit for bit
+POPSHARD_ALPHA = 7
+POPSHARD_ITERS = 16
+POPSHARD_ROUTES = (("mesh", 1), ("mesh", 2), ("mesh", 4), ("chunk", 2),
+                   ("chunk", 4))
+# (design, k, level, weights): the finest level (LP only, n >
+# FM_NODE_LIMIT) with integer weights and mutation's member rows, and the
+# first level with n <= FM_NODE_LIMIT (LP and FM; its FM runs over 4
+# shards took 7.4-8.5 s a run) with member rows, whose FM gain sums run #4
+POPSHARD_LEVELS = (("ibm01_like", 16, "finest", ("integer", "member")),
+                   ("ibm01_like", 16, "coarse", ("member",)),
+                   ("ibm08_like", 64, "finest", ("integer", "member")))
+# the memetic run's beta: the sched phase's, whose static run it is held
+# to (beta 3 did not fit the script's 1,200 s)
+POPSHARD_BETA = SCHED_BETA
+# the instance check's depth: the ISPD98 trio at full size, with alpha 2,
+# LP iterations 2 and FM on levels of at most 1,200 vertices (ibm01's two
+# coarsest), no final V-cycle (the instances phase's config, alpha 7 and
+# all FM levels, took 119.1 s over 4 shards on ``mesh`` and 91.0 s on
+# ``chunk``; alpha 4 and 4 iterations 35.7 and 29.9 s)
+POPSHARD_INSTANCE_CFG = dict(eps=0.03, alpha=2, lp_iters=2,
+                             fm_node_limit=1200, final_vcycles=0,
+                             sched="static", recombination_enabled=False,
+                             mutation_enabled=False)
+
+
+def run_popshard_path(must_launch, smi: str):
+    """Phase ``popshard``: the population axis over a pool of logical
+    shards of the card (DESIGN.md §11), every route bit-equal to
+    ``off``.
+
+    (a) ``refine_population`` (LP, and FM on the coarse level) of
+    ``POPSHARD_ALPHA`` members on the levels of ``POPSHARD_LEVELS`` (the
+    ``table`` gain kernel on ibm01_like at k 16, ``stream`` on ibm08_like
+    at k 64), with integer weights and with mutation's real-valued
+    member rows as that table says, under ``mesh`` at a pool of 1 and
+    ``mesh`` and ``chunk`` at pools of 2 and 4; a mesh route must launch the LP gain kernel P
+    times as often as ``off`` (once per shard and attempt).  (b)
+    ``ring_partners`` under ``mesh`` against the roll.  (c)
+    ``impart_partition`` on ibm01_like at k 16, memetic at beta
+    ``POPSHARD_BETA``, with ``pop_shard="mesh"`` over 4 shards against
+    the ``sched`` phase's static run (or its own ``off`` run).  (d)
+    ``impart_partition_instances`` on the ``instances`` phase's ISPD98
+    requests (``POPSHARD_INSTANCE_CFG``) under ``mesh`` and ``chunk``
+    over 4 shards, each request against its solo run.  Each route's wall is printed beside the card;
+    the walls show what the split costs on one card and claim nothing.
+    Returns the launches of the routed runs."""
+    import numpy as np
+    import torch
+    from repro_torch.core import popshard, refine
+    from repro_torch.core.dcoarsen import build_hierarchy
+    from repro_torch.core.impart import (ImpartConfig, impart_partition,
+                                         impart_partition_instances)
+    from repro_torch.data.hypergraphs import ispd_like
+    from repro_torch.kernels import ops
+    total = {}
+
+    def timed(fn, pool=None, routed=True):
+        popshard.set_logical_shards(pool, "cuda")
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            popshard.set_logical_shards(None, "cuda")
+        counts = ops.launch_counts()
+        if routed:
+            _add_counts(total, counts)
+        return out, wall, counts
+
+    # (a) both tiers on single levels
+    hiers = {}
+    for design, k, which, kinds in POPSHARD_LEVELS:
+        if design not in hiers:
+            hiers[design] = build_hierarchy(ispd_like(design, 1.0), k,
+                                            seed=0, device="cuda")
+        hier = hiers[design]
+        li = 0 if which == "finest" else min(
+            i for i in range(hier.num_levels)
+            if hier.level_n(i) <= FM_NODE_LIMIT)
+        hga, host = hier.level_arrays(li), hier.level_host(li)
+        rng = np.random.default_rng(100 + li)
+        parts = np.stack([refine.rebalance(
+            host.vertex_weights, rng.integers(0, k, host.n).astype(np.int32),
+            k, 0.03) for _ in range(POPSHARD_ALPHA)]).astype(np.int32)
+        ew = np.zeros((POPSHARD_ALPHA, hga.m_pad), np.float32)
+        ew[:, : host.m] = host.edge_weights * (1.0 + 0.1 * rng.integers(
+            0, 4, (POPSHARD_ALPHA, host.m)))
+        gain = "gain_stream" if k > 32 else "gain_table"
+        for weights in kinds:
+            ew_arg = ew if weights == "member" else None
+            def run(shard):
+                return refine.refine_population(
+                    hga, parts, k, 0.03, fm_node_limit=FM_NODE_LIMIT,
+                    max_iters=POPSHARD_ITERS, edge_weights_pop=ew_arg,
+                    shard=shard, device="cuda")
+            (want_p, want_c), w_off, c_off = timed(lambda: run("off"),
+                                                   routed=False)
+            walls, launches, bad = [f"off {w_off!r}"], [], []
+            for route, pool in POPSHARD_ROUTES:
+                (got_p, got_c), w, counts = timed(lambda: run(route), pool)
+                walls.append(f"{route}/{pool} {w!r}")
+                launches.append(f"{route}/{pool} {counts[gain]} "
+                                f"#4 {counts['rating_segment_sum_batch']}")
+                per_shard = pool if route == "mesh" else 1
+                if not (torch.equal(got_p, want_p)
+                        and np.array_equal(got_c, want_c)
+                        and counts[gain] == per_shard * c_off[gain] > 0):
+                    bad.append(f"{route}/{pool}")
+            print(f"[popshard] {design} k={k} level {li} n={hga.n} "
+                  f"{weights} weights, alpha {POPSHARD_ALPHA}: walls (s) "
+                  f"{', '.join(walls)} | {smi}")
+            print(f"[popshard] {design} level {li} {weights}: {gain} "
+                  f"launches off {c_off[gain]} #4 "
+                  f"{c_off['rating_segment_sum_batch']}, "
+                  f"{', '.join(launches)}; every route == off (parts, "
+                  f"cuts; mesh launches = pool x off): {not bad}")
+            if bad:
+                raise AssertionError(f"popshard {design} level {li} "
+                                     f"{weights}: routes differ from off "
+                                     f"or skip shards: {bad}")
+
+    # (b) the ring exchange
+    host = hiers["ibm01_like"].level_host(0)
+    rng = np.random.default_rng(7)
+    pop8 = rng.integers(0, 16, (8, host.n)).astype(np.int32)
+    for pool in (2, 4):
+        got, w, _ = timed(lambda: popshard.ring_partners(
+            pop8, shard="mesh", device="cuda"), pool, routed=False)
+        odd, _, _ = timed(lambda: popshard.ring_partners(
+            pop8[:7], shard="mesh", device="cuda"), pool, routed=False)
+        ok = (np.array_equal(got, np.roll(pop8, -1, axis=0))
+              and np.array_equal(odd, np.roll(pop8[:7], -1, axis=0)))
+        print(f"[popshard] ring_partners mesh over {pool} shards, 8 x "
+              f"{host.n}: == roll {ok} (7 members: host roll), wall_s {w!r}")
+        if not ok:
+            raise AssertionError(f"popshard ring over {pool} shards")
+
+    # (c) the memetic driver over 4 shards
+    hg = ispd_like("ibm01_like", 1.0)
+    common = dict(k=16, eps=0.03, alpha=7, beta=POPSHARD_BETA, seed=0,
+                  final_vcycles=1, sched="static")
+    want = _SHARED_RUNS.get(("sched static", "ibm01_like", 16, 0.03,
+                             POPSHARD_BETA))
+    w_off = "(the sched phase's static run)"
+    if want is None:
+        want, w_off, _ = timed(lambda: impart_partition(
+            hg.structural_copy(), ImpartConfig(**common), device="cuda"),
+            routed=False)
+    got, w, counts = timed(lambda: impart_partition(
+        hg.structural_copy(), ImpartConfig(pop_shard="mesh", **common),
+        device="cuda"), 4)
+    ok = np.array_equal(got.part, want.part) and got.cut == want.cut
+    print(f"[popshard] ibm01_like k=16 memetic beta {POPSHARD_BETA} "
+          f"pop_shard=mesh over 4 shards: wall_s {w!r} (off {w_off!r}), cut "
+          f"{got.cut!r}, off cut {want.cut!r}, == off {ok}; launches "
+          f"{counts} | {smi}")
+    if not ok:
+        raise AssertionError("popshard memetic run differs from off")
+
+    # (d) the instance axis over 4 shards
+    ispd = [ispd_like(name, 1.0) for name, _ in INSTANCE_ISPD]
+    cfgs = [dict(k=k, **POPSHARD_INSTANCE_CFG) for _, k in INSTANCE_ISPD]
+    solos, w_solo = [], 0.0
+    for hg, cfg in zip(ispd, cfgs):
+        solo, w, _ = timed(lambda: impart_partition(
+            hg, ImpartConfig(**cfg), device="cuda"), routed=False)
+        solos.append(solo)
+        w_solo += w
+    for route in ("mesh", "chunk"):
+        res, w, counts = timed(lambda: impart_partition_instances(
+            ispd, [ImpartConfig(pop_shard=route, **c) for c in cfgs],
+            grid=list(INSTANCE_GRID), device="cuda"), 4)
+        ok = all(np.array_equal(r.part, s.part) and r.cut == s.cut
+                 and r.population_cuts == s.population_cuts
+                 for r, s in zip(res, solos))
+        print(f"[popshard] instances {[n for n, _ in INSTANCE_ISPD]} "
+              f"{route} over 4 shards: wall_s {w!r} (solo sum {w_solo!r}), "
+              f"cuts "
+              f"{[r.cut for r in res]}, each == solo {ok}; launches "
+              f"{counts} | {smi}")
+        if not ok:
+            raise AssertionError(f"popshard instances {route}: requests "
+                                 "differ from their solo runs")
+    missing = [n for n in must_launch if total.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"popshard path: kernels never launched: "
                              f"{missing}")
     return total
 
@@ -3114,7 +3441,8 @@ def run_lm_path() -> None:
 # block's scale, where m/sqrt(v) is ill-conditioned).
 TRAIN_GATES = (("codeqwen1.5-7b", False), ("phi3.5-moe-42b-a6.6b", False),
                ("grok-1-314b", True))          # (arch, its SMOKE config)
-TRAIN_GATE_LAYERS, TRAIN_GATE_BATCH, TRAIN_GATE_SEQ = 1, 2, 256
+# (128 tokens: at 256 the phase waited 16-35 s for the CPU on the H100 host)
+TRAIN_GATE_LAYERS, TRAIN_GATE_BATCH, TRAIN_GATE_SEQ = 1, 2, 128
 # f32 sums of up to 26,880 products in another order on the two devices
 # (the lm phase's gates: 1e-4): loss, grad_norm, lr and the moments rtol
 # 1e-4 (m atol 1e-6, v atol 1e-9: the gradient's last digits); the
@@ -4220,6 +4548,15 @@ def main() -> int:
         return 2
 
     report = {}
+    t_phase = [time.perf_counter()]
+
+    def mark(name):
+        # each phase's seconds, for the script's time budget (PERF.md §5)
+        if name in phases or (name == "off" and "memetic" in phases):
+            now = time.perf_counter()
+            print(f"[phase] {name} {now - t_phase[0]!r} s")
+            t_phase[0] = now
+
     if "kernels" in phases:
         check_gain_kernels(report, dev)
         check_gain_one_kernels(report, dev)
@@ -4228,8 +4565,10 @@ def main() -> int:
         check_connectivity_kernels(report, dev)
         check_embedding_bag_kernel(report, dev)
         check_fixed_order_sums(dev)
-    if "cardtests" in phases:
-        run_card_tests()
+    mark("kernels")
+    # the card tests run in a child process beside the phases parity to
+    # ops, and are checked before sched
+    cards = CardTests() if "cardtests" in phases else None
     if "parity" in phases:
         check_small_parity()
     launches = {name: 0 for name in KERNEL_META}
@@ -4239,6 +4578,7 @@ def main() -> int:
             launches[name] += counts.get(name, 0)
 
     off_cut = None
+    mark("parity")
     if "off" in phases or "memetic" in phases:
         for design, k, must in (("ibm08_like", 64, ("gain_stream",
                                                      "rating_segment_sum")),
@@ -4250,39 +4590,57 @@ def main() -> int:
             add(counts)
             if design == "ibm08_like":
                 off_cut = cut
+    mark("off")
     if "memetic" in phases:
         add(run_memetic_path("ibm08_like", 64, off_cut,
                              ("rating_segment_sum", "gain_stream"),
                              ("rating_segment_sum_batch",),
                              beta=MEMETIC_BETA))
+    mark("memetic")
     if "cli" in phases:
-        for design, k, must in (("ibm08_like", 64, ("gain_stream_one",)),
-                                ("ibm01_like", 16, ("gain_table_one",))):
-            add(run_cli(design, k, must))
+        add(run_cli((("ibm08_like", 64, ("gain_stream_one",)),
+                     ("ibm01_like", 16, ("gain_table_one",)))))
+    mark("cli")
     if "ops" in phases:
         add(run_ops_path(("connectivity", "cutsize", "embedding_bag")))
+    mark("ops")
+    if cards is not None:
+        cards.finish()
+    mark("cardtests")
     if "sched" in phases:
         # #8 comes from the phase's card-side cut checks, which fail
         # unless they launch it
         add(run_sched_path("ibm01_like", 16, ("gain_table",
                                               "rating_segment_sum"),
                            ("rating_segment_sum_batch",), beta=SCHED_BETA))
+    mark("sched")
     if "instances" in phases:
         add(run_instances_path(("gain_table", "rating_segment_sum")))
+    mark("instances")
     if "incremental" in phases:
         add(run_incremental_path(("gain_stream", "gain_table",
                                   "rating_segment_sum",
                                   "rating_segment_sum_batch")))
+    mark("incremental")
     if "service" in phases:
         add(run_service_path(("gain_table", "gain_stream",
                               "rating_segment_sum",
                               "rating_segment_sum_batch")))
+    mark("service")
+    if "popshard" in phases:
+        add(run_popshard_path(("gain_table", "gain_stream",
+                               "rating_segment_sum",
+                               "rating_segment_sum_batch"), smi))
+    mark("popshard")
     if "substrate" in phases:
         add(run_substrate_path(("embedding_bag",)))
+    mark("substrate")
     if "lm" in phases:
         run_lm_path()
+    mark("lm")
     if "train" in phases:
         add(run_train_path(("rating_segment_sum_batch",)))
+    mark("train")
     if "--profile" in sys.argv[1:]:
         for design, k in (("ibm08_like", 64), ("ibm01_like", 16)):
             profile_main_path(design, k)

@@ -120,14 +120,12 @@ class ImpartResult:
 
 
 def _check_slice(cfg: ImpartConfig) -> None:
-    """Refuse every option this slice of the port does not run."""
-    pop = cfg.pop_shard or os.environ.get("REPRO_POP_SHARD", "").strip().lower()
-    if pop in ("mesh", "chunk"):
-        _later_slice(f"pop_shard={pop!r}", "multi-device paths")
+    """Refuse every option this slice of the port does not run: the
+    model axis (``pop_shard`` routes through ``core.popshard``)."""
     model = (cfg.model_shard
              or os.environ.get("REPRO_MODEL_SHARD", "").strip().lower())
     if model == "mesh":
-        _later_slice(f"model_shard={model!r}", "multi-device paths")
+        _later_slice(f"model_shard={model!r}", "the model axis, item 13c")
 
 
 def impart_partition(hg: Hypergraph, cfg: ImpartConfig,

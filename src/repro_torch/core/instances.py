@@ -47,9 +47,18 @@ Incumbent entries (bounded migration, DESIGN.md §14) carry an
 incumbent row and a migration budget per instance, broadcast to the
 instance's alpha rows; cold entries of a mixed stack ride with a zeros
 incumbent and an infinite budget, whose masks pass everything, so they
-keep their bits.  Only the single-device ``off`` route exists in this
-slice; the mesh and chunk routes raise ``NotImplementedError`` naming
-the slice that brings them.
+keep their bits.
+
+Routes (``shard``, None = ``REPRO_POP_SHARD``, DESIGN.md §11): on
+``mesh`` a stack's instances are padded to a multiple of the pool's
+"pop" size with mirrors of instance 0 (``_pad_i``) and split into
+contiguous blocks, each shard refining the stack of its block
+(``_take_i``) on its device, the LP flags ORed after every attempt as
+on the population route; ``chunk`` splits the instances in
+``_chunk_bounds`` over the pool's devices without padding; ``off`` keeps
+the stack on one device.  A shard's sub-stack is placed once per stack.
+Since every per-row sum has a fixed order whatever the rows beside it
+(``metrics.row_sums``), each instance keeps its solo bits on every route.
 """
 from __future__ import annotations
 
@@ -60,8 +69,9 @@ import numpy as np
 import torch
 
 from repro_torch.env import resolve_device
+from repro_torch.kernels.common import RATING_TILE
 from .hypergraph import HypergraphArrays, _round_pow2
-from . import metrics
+from . import metrics, popshard
 from . import refine as refine_mod
 
 #: Extents the gain kernel indexes with 32-bit integers
@@ -142,6 +152,9 @@ class InstanceBatch:
     mig_budget: Optional[torch.Tensor] = None  # [I] f32 (inf: unbounded)
     _union: Optional[HypergraphArrays] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # the shards of a routed dispatch, per (route, pool token)
+    _shards: dict = dataclasses.field(default_factory=dict, repr=False,
+                                      compare=False)
 
     @property
     def n_instances(self) -> int:
@@ -163,19 +176,29 @@ class InstanceBatch:
         """The instances end to end as one level (built once): vertex ids
         offset by ``i * n_pad``, edge ids by ``i * m_pad``, in the
         incidence layout too (pads stay -1).  Its ``n``/``m`` are the
-        padded totals; the true sizes live in the rows' masks."""
+        padded totals; the true sizes live in the rows' masks.  Each
+        instance's pins start at a multiple of the rating kernel's tile
+        (a pin block shorter than it gains pad pins of its ghost vertex
+        on its ghost edge, both of zero weight), so a vertex's fixed-order
+        gain sum starts where it does on the solo level."""
         if self._union is None:
             h, num = self.hga, self.n_instances
             ids = torch.arange(num, dtype=torch.int32, device=self.device)
             v_off, e_off = ids[:, None] * self.n_pad, ids[:, None] * self.m_pad
+            pv, pe = h.pin_vertex, h.pin_edge
+            grow = (-pv.shape[1]) % RATING_TILE
+            if grow:
+                pad = torch.nn.functional.pad
+                pv = pad(pv, (0, grow), value=self.n_pad - 1)
+                pe = pad(pe, (0, grow), value=self.m_pad - 1)
             inc = None
             if h.incident is not None:
                 inc = torch.where(h.incident >= 0,
                                   h.incident + e_off[:, :, None], -1)
                 inc = inc.reshape(num * self.n_pad, -1).contiguous()
             self._union = HypergraphArrays(
-                pin_vertex=(h.pin_vertex + v_off).reshape(-1),
-                pin_edge=(h.pin_edge + e_off).reshape(-1),
+                pin_vertex=(pv + v_off).reshape(-1),
+                pin_edge=(pe + e_off).reshape(-1),
                 vertex_weights=h.vertex_weights.reshape(-1),
                 edge_weights=h.edge_weights.reshape(-1),
                 edge_sizes=h.edge_sizes.reshape(-1),
@@ -203,6 +226,8 @@ class _StackRows:
         self.vertex_weights = h.vertex_weights.repeat(alpha, 1)  # [R, n_pad]
         self.edge_weights = h.edge_weights.repeat(alpha, 1)      # [R, m_pad]
         self.n = h.n.repeat(alpha)
+        self.n_lens, self.m_lens = h.n, h.m  # true sizes per instance
+        self.real_vertex_weights = self.union.real_vertex_weights
         self.cap = batch.cap.repeat(alpha)[:, None]               # [R, 1]
         self.k_live = batch.k_live.repeat(alpha)
         self.fm_steps = batch.fm_steps.repeat(alpha)
@@ -228,12 +253,15 @@ class _StackRows:
 
     def block_weights(self, parts: torch.Tensor, k: int) -> torch.Tensor:
         return metrics.block_weight_sums(parts, self.vertex_weights, k,
-                                         self.union.real_vertex_weights)
+                                         self.union.real_vertex_weights,
+                                         self.n)
 
     def cuts(self, parts: torch.Tensor, k: int) -> torch.Tensor:
-        """[R] f32: ``metrics.cutsize_population``'s sum, per row."""
+        """[R] f32: ``metrics.cutsize_population``'s sum, per row, over
+        the row's own instance's edges."""
         lam = (self.phi(parts, k) > 0).sum(-1)
-        return torch.where(lam > 1, self.edge_weights, 0.0).sum(-1)
+        return metrics.row_sums(torch.where(lam > 1, self.edge_weights, 0.0),
+                                self.union.real_edge_weights, self.m_lens)
 
     def gains(self, parts: torch.Tensor, k: int, assemble: str = "auto",
               phi: torch.Tensor | None = None) -> torch.Tensor:
@@ -382,6 +410,131 @@ def _from_rows(batch: InstanceBatch, rows: torch.Tensor) -> torch.Tensor:
     return rows.reshape(-1, num, batch.n_pad).transpose(0, 1).contiguous()
 
 
+def _pad_i(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """Mirror instance 0 up to a multiple of ``mult`` (the ``pad_rows``
+    pattern): mirror lanes repeat instance 0's computation, so trip
+    counts and results are unchanged; callers slice them off."""
+    return popshard.pad_rows(x, mult)
+
+
+def _chunk_bounds(n: int, ndev: int) -> List[int]:
+    return [n * d // ndev for d in range(ndev + 1)]
+
+
+def _batch_to(batch: InstanceBatch, dev: torch.device) -> InstanceBatch:
+    """``batch`` on ``dev`` (itself when it is there)."""
+    if batch.device == dev:
+        return batch
+    move = lambda x: None if x is None else x.to(dev)
+    return dataclasses.replace(
+        batch, hga=popshard._put_one(batch.hga, dev), k_live=move(
+            batch.k_live), cap=move(batch.cap),
+        fm_steps=move(batch.fm_steps), incumbent=move(batch.incumbent),
+        mig_budget=move(batch.mig_budget), _union=None, _shards={})
+
+
+def _shards_for(batch: InstanceBatch, path: str):
+    """The shards of a routed dispatch, built once per (stack, route,
+    pool): ``(ids, keep, sub)`` per shard, ``ids`` its instances (a
+    mesh's pad entries mirror instance 0), ``keep`` which of them are
+    real, ``sub`` its sub-stack on its device.  None for the ``off``
+    route, or ``chunk`` over a pool of one device."""
+    if path == "off":
+        return None
+    key = (path, popshard._pool_token(batch.device))
+    if key not in batch._shards:
+        num = batch.n_instances
+        if path == "mesh":
+            devs = popshard.pop_mesh(batch.device).pop_devices
+            ids = _pad_i(torch.arange(num), len(devs)).tolist()
+            b = len(ids) // len(devs)
+            blocks = [range(s * b, (s + 1) * b) for s in range(len(devs))]
+        else:
+            devs = popshard.local_devices(batch.device)
+            ndev = min(len(devs), num)
+            if ndev <= 1:
+                batch._shards[key] = None
+                return None
+            ids = list(range(num))
+            bounds = _chunk_bounds(num, ndev)
+            blocks = [range(bounds[d], bounds[d + 1]) for d in range(ndev)]
+        batch._shards[key] = [
+            ([ids[q] for q in blk], [q < num for q in blk],
+             _batch_to(_take_i(batch, [ids[q] for q in blk]), devs[s]))
+            for s, blk in enumerate(blocks)]
+    return batch._shards[key]
+
+
+def _shard_rows(x: torch.Tensor, num: int, ids, dev) -> torch.Tensor:
+    """The rows of instances ``ids`` of the stack rows ``x`` [A * num,
+    ...] (row ``a * num + i``), in their own stack's order, on ``dev``."""
+    view = x.reshape((-1, num) + tuple(x.shape[1:]))
+    j = torch.as_tensor(ids, device=x.device)
+    return view[:, j].reshape((-1,) + tuple(x.shape[1:])).to(dev)
+
+
+def _merge_rows(shards, outs, like: torch.Tensor, num: int) -> torch.Tensor:
+    """The shards' rows written back into a copy of the stack rows
+    ``like`` (mirror instances dropped)."""
+    merged = like.clone().reshape((-1, num) + tuple(like.shape[1:]))
+    for (ids, keep, _), out in zip(shards, outs):
+        out = out.to(like.device).reshape(
+            (merged.shape[0], len(ids)) + tuple(like.shape[1:]))
+        real = [q for q, ok in enumerate(keep) if ok]
+        merged[:, [ids[q] for q in real]] = out[:, real]
+    return merged.reshape(like.shape)
+
+
+def _dispatch_lp(batch: InstanceBatch, shards, rows, cuts, fracs, live,
+                 remaining: int):
+    """One grouped LP attempt loop over the stack rows, on one device
+    or over the shards; returns ``(rows, cuts, improved, fracs, used)``."""
+    k, num = batch.k_pad, batch.n_instances
+    if shards is None:
+        lv = batch.rows(rows.shape[0] // num)
+        return refine_mod._lp_attempt_population_impl(
+            lv, rows, cuts, fracs, remaining, k, lv.cap, live=live,
+            k_live=lv.k_live, incumbent=lv.incumbent,
+            mig_budget=lv.mig_budget)
+    work = []
+    for ids, _, sub in shards:
+        lv = sub.rows(rows.shape[0] // num)
+        put = lambda x: _shard_rows(x, num, ids, sub.device)
+        work.append(dict(lv=lv, parts=put(rows), cuts=put(cuts),
+                         fracs=put(fracs), cap=lv.cap, live=put(live),
+                         k_live=lv.k_live, incumbent=lv.incumbent,
+                         mig_budget=lv.mig_budget))
+    used = refine_mod._lp_attempt_shards(work, remaining, k)
+    merged = [_merge_rows(shards, [w[f] for w in work], x, num)
+              for f, x in (("parts", rows), ("cuts", cuts),
+                           ("improved", live), ("fracs", fracs))]
+    return (*merged, used)
+
+
+def _dispatch_fm(batch: InstanceBatch, shards, rows, live):
+    """One grouped FM pass over the stack rows, on one device or over
+    the shards (each shard's move loop ends when its own rows are done);
+    returns the best prefixes and their cuts."""
+    k, num = batch.k_pad, batch.n_instances
+
+    def run(sub, rows_s, live_s):
+        lv = sub.rows(rows_s.shape[0] // sub.n_instances)
+        with popshard.on_device(sub.device):
+            return refine_mod._fm_pass_population_impl(
+                lv, rows_s, k, lv.cap, lv.fm_steps, k_live=lv.k_live,
+                live=live_s, incumbent=lv.incumbent,
+                mig_budget=lv.mig_budget)
+    if shards is None:
+        return run(batch, rows, live)
+    outs = [run(sub, _shard_rows(rows, num, ids, sub.device),
+                _shard_rows(live, num, ids, sub.device))
+            for ids, _, sub in shards]
+    return (_merge_rows(shards, [o[0] for o in outs], rows, num),
+            _merge_rows(shards, [o[1] for o in outs],
+                        torch.zeros(rows.shape[0], device=rows.device),
+                        num))
+
+
 def lp_refine_instances(batch: InstanceBatch, parts, max_iters: int = 24,
                         patience: int = 3, shard: Optional[str] = None,
                         model_shard: Optional[str] = None
@@ -389,10 +542,11 @@ def lp_refine_instances(batch: InstanceBatch, parts, max_iters: int = 24,
     """``refine.lp_refine_population`` for a stacked bucket: the solo
     loop with a ``live`` row mask where it compacts, per-row stall
     counters, and one read of the improvement flag per attempt for the
-    whole group.  Returns (parts [I, A, n_pad] int32 on the batch's
-    device, cuts [I, A] float64), each instance bit-equal to its solo
-    run."""
-    refine_mod._check_slice_options(shard=shard, model_shard=model_shard)
+    whole group (ORed over the shards on the ``mesh`` and ``chunk``
+    routes).  Returns (parts [I, A, n_pad] int32 on the batch's device,
+    cuts [I, A] float64), each instance bit-equal to its solo run."""
+    path = refine_mod._check_slice_options(shard, model_shard, batch.device)
+    shards = _shards_for(batch, path)
     dev, k = batch.device, batch.k_pad
     rows = _to_rows(batch, parts)
     num_rows = rows.shape[0]
@@ -410,11 +564,8 @@ def lp_refine_instances(batch: InstanceBatch, parts, max_iters: int = 24,
         remaining = 5
         while remaining > 0 and live_h.any():
             live = torch.as_tensor(live_h, device=dev)
-            rows, cuts, improved, fracs, used = \
-                refine_mod._lp_attempt_population_impl(
-                    lv, rows, cuts, fracs, remaining, k, lv.cap,
-                    live=live, k_live=lv.k_live, incumbent=lv.incumbent,
-                    mig_budget=lv.mig_budget)
+            rows, cuts, improved, fracs, used = _dispatch_lp(
+                batch, shards, rows, cuts, fracs, live, remaining)
             improved = improved.cpu().numpy()
             improved_round |= improved
             remaining -= used
@@ -435,7 +586,8 @@ def fm_refine_instances(batch: InstanceBatch, parts,
     runs all rows, converged rows frozen through ``live``, each row
     capped at its instance's solo step budget.  The pass is as long as
     the largest budget; on the card it replays one CUDA graph."""
-    refine_mod._check_slice_options(shard=shard, model_shard=model_shard)
+    path = refine_mod._check_slice_options(shard, model_shard, batch.device)
+    shards = _shards_for(batch, path)
     dev, k = batch.device, batch.k_pad
     rows = _to_rows(batch, parts)
     num_rows = rows.shape[0]
@@ -445,10 +597,8 @@ def fm_refine_instances(batch: InstanceBatch, parts,
     for _ in range(max_passes):
         if done.all():
             break
-        cands, cs = refine_mod._fm_pass_population_impl(
-            lv, rows, k, lv.cap, lv.fm_steps, k_live=lv.k_live,
-            live=torch.as_tensor(~done, device=dev), incumbent=lv.incumbent,
-            mig_budget=lv.mig_budget)
+        cands, cs = _dispatch_fm(batch, shards, rows,
+                                 torch.as_tensor(~done, device=dev))
         cs = cs.cpu().numpy().astype(np.float64)
         take = (cs < cuts - 1e-6) & ~done
         rows = torch.where(torch.as_tensor(take, device=dev)[:, None],
@@ -544,8 +694,8 @@ def refine_grouped(entries, grid: Optional[Sequence[int]] = None,
     one entry runs.  This is the dispatch unit the V-cycle drivers and
     the partition service share.
     """
-    refine_mod._check_slice_options(shard=shard, model_shard=model_shard)
     dev = resolve_device(device)
+    refine_mod._check_slice_options(shard, model_shard, dev)
     for e in entries:
         if e[0].device.type != dev.type:
             raise ValueError(f"an entry's level lives on {e[0].device}, "

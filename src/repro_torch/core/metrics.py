@@ -25,6 +25,19 @@ and two runs give the same bits.  On the CPU that sum's plain version
 adds each segment in the original order, as ``index_add_`` did there,
 so the CPU's bits are those of ``index_add_``.  Integer-valued levels
 keep ``index_add_``.
+
+The order of such a sum must not depend on how many rows share the
+launch either: a member refined alone, in a compacted batch, in a stack
+of instances (DESIGN.md §12) or on a shard of the pool (§11) must get
+the same bits.  On the card ATen's reductions and scans pick their
+split of a row from the number of rows, so the per-row sums of
+real-valued weights (the cut, the moved weight, the block weights, the
+acceptance prefix sums) take orders fixed by each row alone
+(``row_sums``, ``block_weight_sums``, ``prefix_sums``).  The rating
+kernel's order depends on where a run starts modulo its tile
+(``RATING_TILE``), so the fixed-order sums lay every row, instance and
+member block out from a multiple of it, and count only a row's true
+entries, so a level re-padded into a stack sums as it does alone.
 """
 from __future__ import annotations
 
@@ -32,7 +45,61 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels.common import RATING_TILE
 from .hypergraph import HypergraphArrays
+
+
+def _tile_multiple(n: int) -> int:
+    return -(-n // RATING_TILE) * RATING_TILE
+
+
+def row_sums(x: torch.Tensor, fixed_order: bool = False,
+             lens=None) -> torch.Tensor:
+    """[R] sums of ``x`` [R, L] over its last axis.
+
+    ``fixed_order`` (real-valued weights) on the card: each row's first
+    ``lens`` entries in the rating kernel's fixed order, whatever the
+    rows beside it.  ``lens`` is an int for every row, or an [I] tensor
+    for the rows of a stack of I instances (row ``a * I + i`` counts
+    ``lens[i]`` entries); None counts the whole row.  The entries past
+    ``lens`` must be zero.  Elsewhere ``Tensor.sum``, whose per-row bits
+    on the CPU do not depend on the rows beside it."""
+    if not (fixed_order and x.is_cuda):
+        return x.sum(-1)
+    from repro_torch.kernels import ops
+    rows, length = x.shape
+    dev = x.device
+    lens = torch.as_tensor(length if lens is None else lens,
+                           device=dev).reshape(-1)
+    num = lens.shape[0]
+    width = _tile_multiple(length)
+    if width != length:
+        x = torch.nn.functional.pad(x, (0, width - length))
+    # instance i's entries from i * width, a multiple of the tile; ids 2i
+    # for its true entries, 2i + 1 for the rest
+    pos = torch.arange(width, device=dev)
+    segs = (2 * torch.arange(num, device=dev)[:, None]
+            + (pos[None] >= lens[:, None])).reshape(-1).to(torch.int32)
+    sums = ops.rating_segment_sum_batch(
+        x.reshape(rows // num, num * width).contiguous(), segs, 2 * num)
+    return sums[:, 0::2].reshape(rows)
+
+
+def prefix_sums(x: torch.Tensor, fixed_order: bool = False) -> torch.Tensor:
+    """Inclusive prefix sums of ``x`` along its last axis.
+
+    ``fixed_order`` (real-valued weights) on the card: a Hillis-Steele
+    scan of elementwise adds, whose order at position p is fixed by p
+    alone (``torch.cumsum`` on the card splits a row by the number of
+    rows).  Elsewhere ``torch.cumsum``."""
+    if not (fixed_order and x.is_cuda):
+        return torch.cumsum(x, dim=-1)
+    x = x.clone()
+    d = 1
+    while d < x.shape[-1]:
+        x[..., d:] = x[..., d:] + x[..., :-d]
+        d *= 2
+    return x
 
 
 def member_arrays(hga: HypergraphArrays,
@@ -53,29 +120,39 @@ def block_weights_population(hga: HypergraphArrays, parts: torch.Tensor,
                              k: int) -> torch.Tensor:
     """[alpha, k] total vertex weight per block of every member."""
     return block_weight_sums(parts, hga.vertex_weights, k,
-                             hga.real_vertex_weights)
+                             hga.real_vertex_weights, hga.n)
 
 
 def block_weight_sums(parts: torch.Tensor, vertex_weights: torch.Tensor,
-                      k: int, fixed_order: bool = False) -> torch.Tensor:
+                      k: int, fixed_order: bool = False,
+                      n=None) -> torch.Tensor:
     """[R, k] sums of ``vertex_weights`` ([n_pad], or one row per row of
     ``parts`` [R, n_pad]) per block.  ``fixed_order`` (real-valued
-    weights) sorts the (row, block) keys stably and sums them with the
-    rating kernel, in vertex order per block, instead of
-    ``scatter_add_``."""
-    rows = parts.shape[0]
+    weights) sorts each row's vertices by block, stably, and sums them
+    with the rating kernel, in vertex order per block, instead of
+    ``scatter_add_``: each row from a multiple of the kernel's tile, its
+    vertices from ``n`` on (an int, or one per row: padding, of zero
+    weight) in a last segment of their own, so a row's bits depend on
+    that row alone."""
+    rows, n_pad = parts.shape
+    dev = parts.device
     vw = vertex_weights.expand(rows, -1)
     if not fixed_order:
         return torch.zeros((rows, k), dtype=torch.float32,
-                           device=parts.device).scatter_add_(
-                               1, parts.long(), vw)
+                           device=dev).scatter_add_(1, parts.long(), vw)
     from repro_torch.kernels import ops
-    key = (torch.arange(rows, device=parts.device)[:, None] * k
-           + parts.long()).reshape(-1)
-    order = torch.argsort(key, stable=True)
+    n = torch.as_tensor(n_pad if n is None else n, device=dev)
+    local = torch.where(torch.arange(n_pad, device=dev)
+                        < n.reshape(-1, 1), parts.long(), k)
+    local, order = torch.sort(local, dim=1, stable=True)
+    width = _tile_multiple(n_pad)
+    vals = torch.nn.functional.pad(torch.gather(vw, 1, order),
+                                   (0, width - n_pad))
+    key = torch.nn.functional.pad(local, (0, width - n_pad), value=k)
+    key = key + torch.arange(rows, device=dev)[:, None] * (k + 1)
     return ops.rating_segment_sum(
-        vw.reshape(-1)[order].contiguous(), key[order].to(torch.int32),
-        rows * k).reshape(rows, k)
+        vals.reshape(-1).contiguous(), key.reshape(-1).to(torch.int32),
+        rows * (k + 1)).reshape(rows, k + 1)[:, :k]
 
 
 def pins_in_block_population(hga: HypergraphArrays, parts: torch.Tensor,
@@ -120,9 +197,11 @@ def cutsize(hga: HypergraphArrays, part: torch.Tensor, k: int) -> torch.Tensor:
 
 def cutsize_population(hga: HypergraphArrays, parts: torch.Tensor,
                        k: int) -> torch.Tensor:
-    """[alpha] f32 cut of every member."""
+    """[alpha] f32 cut of every member (in a fixed order on real-valued
+    edge weights, ``row_sums``)."""
     lam = (pins_in_block_population(hga, parts, k) > 0).sum(-1)
-    return torch.where(lam > 1, hga.edge_weights[None], 0.0).sum(-1)
+    return row_sums(torch.where(lam > 1, hga.edge_weights[None], 0.0),
+                    hga.real_edge_weights, hga.m)
 
 
 def cutsize_population_weighted(hga: HypergraphArrays, parts: torch.Tensor,
@@ -131,7 +210,7 @@ def cutsize_population_weighted(hga: HypergraphArrays, parts: torch.Tensor,
     row ``ew_pop[alpha, m_pad]`` over the shared structure (the mutation
     cohort's objective)."""
     lam = connectivity_population(hga, parts, k)
-    return torch.where(lam > 1, ew_pop, 0.0).sum(-1)
+    return row_sums(torch.where(lam > 1, ew_pop, 0.0), True, hga.m)
 
 
 def km1(hga: HypergraphArrays, part: torch.Tensor, k: int) -> torch.Tensor:
@@ -309,8 +388,20 @@ def _gain_compact(hga: HypergraphArrays, phi: torch.Tensor, k: int,
             raise ValueError("compact gain slots exceed the rating "
                              "kernel's int32 segment ids")
         srt, perm = torch.sort(torch.cat([s1, s2]), stable=True)
-        g = ops.rating_segment_sum(torch.cat([wp, wp])[perm].contiguous(),
-                                   srt.to(torch.int32), size)
+        vals = torch.cat([wp, wp])[perm]
+        # each member owns 2P consecutive slots of the sorted order: laid
+        # out from multiples of the kernel's tile, the padding in the
+        # member's last slot (its ghost's "none" column, sliced off)
+        width = _tile_multiple(2 * hga.p_pad)
+        if width != 2 * hga.p_pad:
+            last = ((torch.arange(alpha, device=dev) + 1) * hga.n_pad
+                    * (k + 1) - 1)[:, None]
+            pad = (0, width - 2 * hga.p_pad)
+            vals = torch.nn.functional.pad(vals.reshape(alpha, -1), pad)
+            srt = torch.cat([srt.reshape(alpha, -1),
+                             last.expand(alpha, pad[1])], dim=1)
+        g = ops.rating_segment_sum(vals.reshape(-1).contiguous(),
+                                   srt.reshape(-1).to(torch.int32), size)
         l = _vertex_sums(hga, was_internal[:, sorted_pin_edges(hga)])
     else:
         g = torch.zeros(size, dtype=torch.float32, device=dev)

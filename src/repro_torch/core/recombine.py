@@ -137,10 +137,11 @@ def ring_recombination(hg: Hypergraph, parts, cuts, k: int,
     Takes the population as a stacked [alpha, >= n] array (or a list of
     vectors) and returns the offspring stacked [alpha, n] with their
     cuts.  Partners come from ``popshard.ring_partners`` (the host
-    roll)."""
+    roll, or the exchange over the pool's shards on the ``mesh``
+    route)."""
     alpha = len(parts)
     stacked = np.stack([np.asarray(p, np.int32)[: hg.n] for p in parts])
-    partners = popshard.ring_partners(stacked, shard=shard)
+    partners = popshard.ring_partners(stacked, shard=shard, device=device)
     partner_cuts = np.roll(np.asarray(cuts, np.float64), -1)
     new_parts, new_cuts = [], []
     for i in range(alpha):

@@ -24,7 +24,21 @@ budget given as masks.  ``incumbent`` + ``mig_budget`` bound every
 member's moved vertex weight relative to an incumbent assignment through
 both tiers (incremental repartitioning, DESIGN.md §14); an infinite
 budget (``mig_budget=None``) gives the bits of a call without them.
-Mesh sharding belongs to a later slice and raises
+
+``shard`` (None = ``REPRO_POP_SHARD``, DESIGN.md §11) routes both tiers
+over the pool of ``core.popshard``: on ``mesh`` the member rows are
+padded to the "pop" size and split into contiguous blocks, the level's
+structure and cap are placed once per (level, device), and every shard
+runs the single-device code on its rows; the LP attempt loop ORs the
+shards' "any lane improved" flags after every attempt (the reference's
+``psum`` over "pop"), so every shard runs the single-device trip count;
+FM needs no collective, each shard's move loop ends when its own lanes
+are done.  ``chunk`` splits the FM batch over the pool's devices and
+keeps LP on one device.  Every per-row sum of real-valued weights has a
+fixed order whatever the rows that share the launch
+(``metrics.row_sums``, ``block_weight_sums``, ``prefix_sums``), so each
+member gets the same bits on every route.  The model axis
+(``model_shard``) belongs to a later slice and raises
 ``NotImplementedError``.
 
 The scalar entry points (``lp_round``, ``lp_refine``, ``fm_refine``,
@@ -35,6 +49,7 @@ gain kernels (``metrics.gain_matrix``).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Tuple
 
 import numpy as np
@@ -59,11 +74,15 @@ def _later_slice(what: str, slice_name: str):
         f"{what} belongs to a later slice of the port ({slice_name})")
 
 
-def _check_slice_options(shard=None, model_shard=None) -> None:
-    if shard not in (None, "off", "auto"):
-        _later_slice(f"shard={shard!r}", "multi-device paths")
+def _check_slice_options(shard=None, model_shard=None,
+                         device: str | torch.device = "cuda") -> str:
+    """The population route ``shard`` resolves to over the pool of
+    ``device``'s type (``popshard.resolve``); a ``model_shard`` other
+    than off raises."""
     if model_shard not in (None, "off", "auto"):
-        _later_slice(f"model_shard={model_shard!r}", "multi-device paths")
+        _later_slice(f"model_shard={model_shard!r}",
+                     "the model axis, item 13c")
+    return popshard.resolve(shard, device)
 
 
 def _migration_args(incumbent, mig_budget, n_pad: int, device):
@@ -81,8 +100,10 @@ def _migration_args(incumbent, mig_budget, n_pad: int, device):
 def _moved_weight(lv, parts: torch.Tensor,
                   incumbent: torch.Tensor) -> torch.Tensor:
     """[R] f32 weight of the vertices of each row that sit outside their
-    incumbent block."""
-    return torch.where(parts != incumbent, lv.vertex_weights, 0.0).sum(-1)
+    incumbent block (in a fixed order on real-valued vertex weights)."""
+    return metrics.row_sums(
+        torch.where(parts != incumbent, lv.vertex_weights, 0.0),
+        lv.real_vertex_weights, lv.n_lens)
 
 
 def pad_part(part, n_pad: int, device=None) -> torch.Tensor:
@@ -119,8 +140,8 @@ def accept_moves(part: torch.Tensor, target: torch.Tensor,
                  vertex_weights: torch.Tensor, bw: torch.Tensor,
                  cap: torch.Tensor, frac: torch.Tensor, k: int,
                  incumbent: torch.Tensor | None = None,
-                 mig_remaining: torch.Tensor | None = None
-                 ) -> torch.Tensor:
+                 mig_remaining: torch.Tensor | None = None,
+                 fixed_order: bool = False) -> torch.Tensor:
     """Balanced parallel-move acceptance for every member at once
     (``part``/``target``/``gain``/``propose`` [alpha, n_pad], ``bw``
     [alpha, k], ``frac`` [alpha]).
@@ -138,6 +159,10 @@ def accept_moves(part: torch.Tensor, target: torch.Tensor,
     only while that sum stays within the row's remaining budget;
     proposals that lower it always pass.  An infinite budget passes
     every proposal, so the trajectory is the one without the branch.
+
+    ``fixed_order`` (real-valued vertex weights) takes both prefix sums
+    in an order that does not depend on the number of rows
+    (``metrics.prefix_sums``).
     """
     alpha, n_pad = part.shape
     order = torch.argsort(torch.where(propose, -gain, -NEG), dim=1,
@@ -158,7 +183,8 @@ def accept_moves(part: torch.Tensor, target: torch.Tensor,
     # the one-hot is a comparison because F.one_hot syncs the device
     tgt_oh = (torch.arange(k + 1, device=part.device)[None, :, None]
               == tgt_sorted[:, None, :])
-    pref = torch.cumsum(tgt_oh * w_sorted[:, None, :], dim=2)  # [a, k+1, n]
+    pref = metrics.prefix_sums(tgt_oh * w_sorted[:, None, :],
+                               fixed_order)                    # [a, k+1, n]
     fits_sorted = pref[:, :k] <= (cap - bw)[..., None] + 1e-6
     fit_own = torch.gather(fits_sorted, 1,
                            tgt_sorted.clamp(max=k - 1)[:, None, :])[:, 0]
@@ -169,7 +195,8 @@ def accept_moves(part: torch.Tensor, target: torch.Tensor,
         delta = vertex_weights * (moved_tgt - moved_now)
         delta_sorted = torch.gather(torch.where(propose, delta, 0.0), 1,
                                     order)
-        pos_pref = torch.cumsum(torch.clamp(delta_sorted, min=0.0), dim=1)
+        pos_pref = metrics.prefix_sums(torch.clamp(delta_sorted, min=0.0),
+                                       fixed_order)
         mig_ok = ((delta_sorted <= 0.0)
                   | (pos_pref <= mig_remaining[:, None] + 1e-6))
         accept_sorted = accept_sorted & mig_ok
@@ -193,6 +220,8 @@ class _Level:
         self.gain_hga = _with_weights(hga, gain_weights)
         self.n_pad, self.m_pad = hga.n_pad, hga.m_pad
         self.vertex_weights = hga.vertex_weights
+        self.real_vertex_weights = hga.real_vertex_weights
+        self.n_lens = hga.n  # each row's true vertex count
         self._pins = None
 
     @property
@@ -279,7 +308,8 @@ def _lp_round_from_gains(lv, parts: torch.Tensor, k: int,
         mig_remaining = mig_budget - _moved_weight(lv, parts, incumbent)
     return accept_moves(parts, best_j.to(torch.int32), best_g, propose,
                         lv.vertex_weights, bw, cap, fracs, k,
-                        incumbent=incumbent, mig_remaining=mig_remaining)
+                        incumbent=incumbent, mig_remaining=mig_remaining,
+                        fixed_order=lv.real_vertex_weights)
 
 
 def _with_weights(hga: HypergraphArrays,
@@ -335,31 +365,103 @@ def _lp_attempt_population_impl(lv, parts: torch.Tensor,
     A row with ``live`` False never accepts and never raises that flag;
     ``incumbent``/``mig_budget`` bound each row's migration
     (``_lp_round_from_gains``).  Returns ``(parts, cuts, improved, fracs,
-    used)``.
+    used)``: the loop of ``_lp_attempt_shards`` over one shard.
     """
-    improved = torch.zeros(parts.shape[0], dtype=torch.bool,
-                           device=parts.device)
+    shard = dict(lv=lv, parts=parts, cuts=cuts, fracs=fracs, cap=cap,
+                 live=live, k_live=k_live, incumbent=incumbent,
+                 mig_budget=mig_budget)
+    used = _lp_attempt_shards([shard], attempts, k)
+    return (shard["parts"], shard["cuts"], shard["improved"],
+            shard["fracs"], used)
+
+
+def _lp_attempt_shards(shards, attempts: int, k: int) -> int:
+    """The LP attempt loop over the shards of a population, each a dict
+    of its rows' ``lv``, ``parts``, ``cuts``, ``fracs`` and ``cap`` (and
+    optionally ``live``, ``k_live``, ``incumbent``, ``mig_budget``), on
+    its own device; the state is updated in the dicts, each of which
+    gains its rows' ``improved`` flags.  After every attempt the shards'
+    "any row improved" flags are ORed in one host read (the reference
+    ``psum``s them over "pop"), so every shard runs the trip count of
+    the single-device loop.  Returns the attempts used."""
+    for sh in shards:
+        sh["improved"] = torch.zeros(sh["parts"].shape[0], dtype=torch.bool,
+                                     device=sh["parts"].device)
     used = 0
     while used < attempts:
-        cands = _lp_round_population_impl(lv, parts, k, cap, fracs, k_live,
-                                          incumbent, mig_budget)
-        cs = lv.cuts(cands, k)
-        take = cs < cuts - 1e-6
-        if live is not None:
-            take = take & live
-        parts = torch.where(take[:, None], cands, parts)
-        cuts = torch.where(take, cs, cuts)
-        fracs = torch.where(take, fracs, fracs * 0.25)
-        improved = improved | take
+        flags = []
+        for sh in shards:
+            with popshard.on_device(sh["parts"].device):
+                cands = _lp_round_population_impl(
+                    sh["lv"], sh["parts"], k, sh["cap"], sh["fracs"],
+                    sh.get("k_live"), sh.get("incumbent"),
+                    sh.get("mig_budget"))
+                cs = sh["lv"].cuts(cands, k)
+                take = cs < sh["cuts"] - 1e-6
+                if sh.get("live") is not None:
+                    take = take & sh["live"]
+                sh["parts"] = torch.where(take[:, None], cands, sh["parts"])
+                sh["cuts"] = torch.where(take, cs, sh["cuts"])
+                sh["fracs"] = torch.where(take, sh["fracs"],
+                                          sh["fracs"] * 0.25)
+                sh["improved"] = sh["improved"] | take
+                flags.append(sh["improved"].any())
         used += 1
-        if bool(improved.any()):
+        home = flags[0].device
+        if bool(flags[0] if len(flags) == 1
+                else torch.stack([f.to(home) for f in flags]).any()):
             break
-    return parts, cuts, improved, fracs, used
+    return used
 
 
-def _cap_for(hga: HypergraphArrays, k: int, eps: float) -> torch.Tensor:
-    """The balance cap of (hga, k, eps), an f32 scalar on hga's device."""
-    return metrics.balance_cap(hga.total_weight, k, eps)
+# Balance caps, keyed on (popshard.placement_token(hga), k, eps): the cap
+# is a function of the level's total weight, so it is computed once per
+# level, and its placements on the shards' devices go through the
+# placement cache beside the level's.  The token, not a raw id(), keeps
+# the key safe from CPython's id reuse after a level is freed.
+_CAP_CACHE: dict = {}
+
+
+def _cap_for(hga: HypergraphArrays, k: int, eps: float, target=None):
+    """The balance cap of (hga, k, eps), an f32 scalar on hga's device,
+    or placed on ``target`` (a device or ``popshard.Replicated``); both
+    the scalar and its placements are cached."""
+    key = (popshard.placement_token(hga), int(k), float(eps))
+    cap = _CAP_CACHE.get(key)
+    if cap is None:
+        cap = metrics.balance_cap(hga.total_weight, k, eps)
+        _CAP_CACHE[key] = cap
+        weakref.finalize(hga, _CAP_CACHE.pop, key, None)
+    if target is None:
+        return cap
+    return popshard.device_put_cached(cap, target)
+
+
+def _mesh_dispatch(hga: HypergraphArrays, k: int, eps: float):
+    """Shared setup of a mesh-route dispatch (both tiers): the mesh of
+    the pool of hga's device type, its "pop" size and row placement, and
+    the level's structure and cap on every shard, placed once per
+    (level, device) through the placement cache.  The structure is
+    replicated, so the budget checks a model shard count of 1."""
+    mesh = popshard.pop_mesh(hga.device)
+    rep = popshard.replicated(mesh)
+    popshard.enforce_structure_budget(hga, 1)
+    return (mesh, mesh.shape["pop"], popshard.pop_sharding(mesh),
+            popshard.device_put_cached(hga, rep), _cap_for(hga, k, eps, rep))
+
+
+def _put_rows(x: torch.Tensor, npop: int, pop_sh) -> list:
+    """Pad a batch of member rows to the "pop" size (pad rows mirror row
+    0) and split it over the shards."""
+    return pop_sh.put(popshard.pad_rows(x, npop))
+
+
+def _population_shard_devices(device) -> list | None:
+    """The pool's devices for the ``chunk`` route, or None when the pool
+    holds one device.  Draws from the survivor pool
+    (``popshard.local_devices``), so a device loss re-routes it too."""
+    devs = popshard.local_devices(device)
+    return devs if len(devs) > 1 else None
 
 
 def _member_cuts(hga: HypergraphArrays, parts: torch.Tensor,
@@ -432,12 +534,13 @@ def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
     acceptance cuts use its own row, as if it refined its own reweighted
     hypergraph.  ``incumbent`` [n] + ``mig_budget``: every member's moved
     weight relative to the incumbent stays within the budget (None is
-    an infinite budget).  Returns (parts [alpha, n_pad] int32 on hga's
-    device, cuts [alpha] float64)."""
-    _check_slice_options(shard, model_shard)
-    # the replicated structure on the one device this path touches
-    popshard.enforce_structure_budget(hga, 1)
+    an infinite budget).  ``shard`` ``mesh`` runs every attempt loop over
+    the pool's shards (the rows padded to the "pop" size, the flags ORed
+    after every attempt); ``chunk`` and ``off`` stay on hga's device.
+    Returns (parts [alpha, n_pad] int32 on hga's device, cuts [alpha]
+    float64)."""
     dev = hga.device
+    path = _check_slice_options(shard, model_shard, dev)
     cap = _cap_for(hga, k, eps)
     parts = pad_parts(parts, hga.n_pad, dev)
     inc, mb = _migration_args(incumbent, mig_budget, hga.n_pad, dev)
@@ -446,6 +549,16 @@ def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
         edge_weight_override, dtype=torch.float32, device=dev))
     ew_pop = (None if edge_weights_pop is None else torch.as_tensor(
         edge_weights_pop, dtype=torch.float32, device=dev))
+    mesh = None
+    if path == "mesh" and alpha > 1:
+        mesh, npop, pop_sh, hga_m, cap_m = _mesh_dispatch(hga, k, eps)
+        devs = mesh.pop_devices
+        ewo_m = [None if ewo is None else ewo.to(d) for d in devs]
+        inc_m = [None if inc is None else inc.to(d) for d in devs]
+        mb_m = [None if mb is None else mb.to(d) for d in devs]
+    else:
+        # the replicated structure on the one device this path touches
+        popshard.enforce_structure_budget(hga, 1)
     cuts = _member_cuts(hga, parts, ew_pop, k).cpu().numpy().astype(
         np.float64)
 
@@ -465,13 +578,32 @@ def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
             sub_ew = None
             if ew_pop is not None:
                 sub_ew = ew_pop[idx_t] if len(idx) < alpha else ew_pop
-            new_sub, new_cuts, improved, new_fracs, used = \
-                _lp_attempt_population_impl(
-                    _Level(hga, sub_ew, ewo), sub,
-                    torch.as_tensor(cuts[idx], dtype=torch.float32,
-                                    device=dev),
-                    torch.as_tensor(fracs[idx], device=dev),
-                    remaining, k, cap, incumbent=inc, mig_budget=mb)
+            sub_cuts = torch.as_tensor(cuts[idx], dtype=torch.float32,
+                                       device=dev)
+            sub_fracs = torch.as_tensor(fracs[idx], device=dev)
+            if mesh is not None:
+                # the bucket padded to the "pop" size (pad rows mirror row
+                # 0, so the results and the ORed flag are unchanged) and
+                # split over the shards; the active rows come back here
+                na = len(idx)
+                ew_s = ([None] * npop if sub_ew is None
+                        else _put_rows(sub_ew, npop, pop_sh))
+                shards = [dict(lv=_Level(hga_m[s], ew_s[s], ewo_m[s]),
+                               parts=p, cuts=c, fracs=f, cap=cap_m[s],
+                               incumbent=inc_m[s], mig_budget=mb_m[s])
+                          for s, (p, c, f) in enumerate(zip(
+                              _put_rows(sub, npop, pop_sh),
+                              _put_rows(sub_cuts, npop, pop_sh),
+                              _put_rows(sub_fracs, npop, pop_sh)))]
+                used = _lp_attempt_shards(shards, remaining, k)
+                new_sub, new_cuts, improved, new_fracs = (
+                    pop_sh.gather([sh[f] for sh in shards], dev)[:na]
+                    for f in ("parts", "cuts", "improved", "fracs"))
+            else:
+                new_sub, new_cuts, improved, new_fracs, used = \
+                    _lp_attempt_population_impl(
+                        _Level(hga, sub_ew, ewo), sub, sub_cuts, sub_fracs,
+                        remaining, k, cap, incumbent=inc, mig_budget=mb)
             improved = improved.cpu().numpy()
             if len(idx) < alpha:
                 parts[idx_t] = new_sub
@@ -727,30 +859,76 @@ def fm_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
     """Batched FM with per-member pass acceptance: a member stops
     improving exactly when the scalar loop would have broken.
     ``incumbent`` [n] + ``mig_budget`` bound migration move by move
-    inside every pass.  Returns (parts [alpha, n_pad], cuts [alpha]
+    inside every pass.  ``shard`` ``mesh`` runs each pass over the
+    pool's shards (rows padded to the "pop" size, each shard's move loop
+    ending when its own lanes are done), ``chunk`` splits the pass's rows
+    over the pool's devices, ``off`` stays on hga's device; every route
+    gives the same bits.  Returns (parts [alpha, n_pad], cuts [alpha]
     float64)."""
-    _check_slice_options(shard, model_shard)
-    popshard.enforce_structure_budget(hga, 1)
     dev = hga.device
+    path = _check_slice_options(shard, model_shard, dev)
     cap = _cap_for(hga, k, eps)
     parts = pad_parts(parts, hga.n_pad, dev)
     inc, mb = _migration_args(incumbent, mig_budget, hga.n_pad, dev)
     alpha = parts.shape[0]
+    if alpha <= 1:
+        path = "off"
     ew_pop = (None if edge_weights_pop is None else torch.as_tensor(
         edge_weights_pop, dtype=torch.float32, device=dev))
+    steps = step_budget or int(min(hga.n_pad, 1024))
+    devs = _population_shard_devices(dev) if path == "chunk" else None
+    if path == "mesh":
+        mesh, npop, pop_sh, hga_d, cap_d = _mesh_dispatch(hga, k, eps)
+        devs = list(mesh.pop_devices)
+    else:
+        popshard.enforce_structure_budget(hga, 1)
+        if devs:
+            hga_d = [popshard.device_put_cached(hga, d) for d in devs]
+            cap_d = [_cap_for(hga, k, eps, d) for d in devs]
+    if devs:
+        inc_d = [None if inc is None else inc.to(d) for d in devs]
+        mb_d = [None if mb is None else mb.to(d) for d in devs]
+
+    def on_shards(blocks, ew_blocks):
+        # one pass on each shard's rows, each on its own device
+        outs = []
+        for di, (p, ew) in enumerate(zip(blocks, ew_blocks)):
+            with popshard.on_device(devs[di]):
+                outs.append(_fm_pass_population_impl(
+                    hga_d[di], p, k, cap_d[di], steps, ew,
+                    incumbent=inc_d[di], mig_budget=mb_d[di]))
+        return (torch.cat([o[0].to(dev) for o in outs]),
+                torch.cat([o[1].to(dev) for o in outs]))
+
     cuts = _member_cuts(hga, parts, ew_pop, k).cpu().numpy().astype(
         np.float64)
-    steps = step_budget or int(min(hga.n_pad, 1024))
     done = np.zeros(alpha, bool)
     for _ in range(max_passes):
         idx = np.nonzero(~done)[0]  # compact: finished members drop out
         if len(idx) == 0:
             break
         idx_t = torch.as_tensor(idx, device=dev)
-        cands, cs = _fm_pass_population_impl(
-            hga, parts[idx_t], k, cap, steps,
-            None if ew_pop is None else ew_pop[idx_t],
-            incumbent=inc, mig_budget=mb)
+        sub = parts[idx_t]
+        sub_ew = None if ew_pop is None else ew_pop[idx_t]
+        if path == "mesh":
+            na = len(idx)
+            cands, cs = on_shards(
+                _put_rows(sub, npop, pop_sh),
+                [None] * npop if sub_ew is None
+                else _put_rows(sub_ew, npop, pop_sh))
+            cands, cs = cands[:na], cs[:na]
+        elif devs and len(idx) > 1:
+            ndev = min(len(devs), len(idx))
+            bounds = [len(idx) * d // ndev for d in range(ndev + 1)]
+            chunk = [slice(bounds[d], bounds[d + 1]) for d in range(ndev)]
+            cands, cs = on_shards(
+                [sub[c].to(devs[d]) for d, c in enumerate(chunk)],
+                [None if sub_ew is None else sub_ew[c].to(devs[d])
+                 for d, c in enumerate(chunk)])
+        else:
+            cands, cs = _fm_pass_population_impl(
+                hga, sub, k, cap, steps, sub_ew, incumbent=inc,
+                mig_budget=mb)
         cs = cs.cpu().numpy().astype(np.float64)
         take = cs < cuts[idx] - 1e-6
         if take.any():

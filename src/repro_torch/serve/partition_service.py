@@ -325,8 +325,8 @@ class PartitionService:
 
     Every dispatch runs on ``device`` (default ``"cuda"``; asking for a
     card where none is present raises).  ``shard``/``model_shard`` other
-    than ``None``/``"off"`` belong to the multi-device slice and raise
-    ``NotImplementedError``."""
+    than ``None``/``"off"`` belong to later slices (the service's routes,
+    item 13b; the model axis, 13c) and raise ``NotImplementedError``."""
 
     def __init__(self, slots: Optional[int] = None,
                  buckets: Optional[Sequence[int]] = None,
@@ -345,7 +345,10 @@ class PartitionService:
                  sched: Optional[str] = None,
                  sched_policy: str = "ucb1",
                  device: str | torch.device = "cuda"):
-        refine_mod._check_slice_options(shard=shard, model_shard=model_shard)
+        refine_mod._check_slice_options(shard, model_shard, "cpu")
+        if shard is not None and shard.strip().lower() in ("mesh", "chunk"):
+            refine_mod._later_slice(f"the service's shard={shard!r}",
+                                    "the service's routes, item 13b")
         self.device = resolve_device(device)
         self.n_slots = slots if slots is not None else serve_slots()
         if buckets is not None:

@@ -24,6 +24,10 @@ for bit too: its gains are integer-valued sums.  So is bounded migration
 (DESIGN.md §14) on integer weights; on drifted, real-valued weights two
 runs on the card must give the same bits (their sums take fixed-order
 paths), and an integer-weighted level must take none of those paths.
+A drifted refresh stacked with other requests, or split over logical
+shards of the card (the population axis, DESIGN.md §11), is held to
+its solo run bit for bit, and so are the LP and FM routes over 4
+shards to the single-device route.
 The partition service on the card is held to its solo runs bit for bit,
 through a device loss too, and checkpoints round-trip CUDA tensors
 exactly.  The LM's SMOKE models (f32, TF32 off) are held to their CPU
@@ -36,6 +40,7 @@ parameters rtol 1e-6; the DLRM sparse step gives the same bits twice
 (its duplicate-row sums go through #4).
 """
 import ast
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -44,7 +49,7 @@ import torch
 
 from port_parity import assert_bit_equal
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.core import incremental, instances, metrics, refine
+from repro_torch.core import incremental, instances, metrics, popshard, refine
 from repro_torch.core.dcoarsen import build_hierarchy
 from repro_torch.core.hypergraph import HypergraphArrays, contract_arrays
 from repro_torch.core.vcycle import vcycle, vcycle_instances
@@ -668,6 +673,96 @@ def test_replayed_drift_is_bit_stable_on_card(card, monkeypatch):
         runs.append(out)
     for a, b in zip(*runs):
         assert np.array_equal(a.part, b.part) and a.cut == b.cut
+
+
+# --------------------------------------------------------------------------
+# F5 and the population axis over a pool of logical shards of the card
+# --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=1)
+def _f5_case(card):
+    """A drifted level (real-valued edge and vertex weights) of n 300
+    as a budgeted refresh entry, its solo run, and two cold entries of
+    its shape bucket."""
+    base = _netlist(300, 400, 31)
+    drifted = drift_stream(base, 1, magnitude=0.15, vertex_magnitude=0.1,
+                           tag="card-f5")[0]
+    lv = drifted.arrays(device=card)
+    assert lv.real_edge_weights and lv.real_vertex_weights
+    rng = np.random.default_rng(31)
+    inc = refine.rebalance(base.vertex_weights,
+                           rng.integers(0, MIG_K, base.n).astype(np.int32),
+                           MIG_K, MIG_EPS).astype(np.int32)
+    parts = np.stack([refine.rebalance(
+        base.vertex_weights, rng.integers(0, MIG_K, base.n).astype(np.int32),
+        MIG_K, MIG_EPS) for _ in range(3)]).astype(np.int32)
+    budget = 0.15 * float(drifted.vertex_weights.sum())
+    entry = (lv, parts, MIG_K, MIG_EPS, inc, budget)
+    solo = refine.refine_population(lv, parts, MIG_K, MIG_EPS, max_iters=6,
+                                    incumbent=inc, mig_budget=budget,
+                                    device=card)
+    cold = base.arrays(device=card)
+    others = [(cold, parts[::-1].copy(), MIG_K, MIG_EPS),
+              (cold, parts, MIG_K, MIG_EPS)]
+    return entry, solo, others
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stacked,p", [(1, 1), (1, 2), (1, 4), (3, 1),
+                                       (3, 2), (3, 4)])
+def test_drifted_refresh_keeps_its_bits_stacked_and_sharded_on_card(
+        card, stacked, p):
+    """F5's gate at small size: the drifted refresh alone or stacked with
+    two cold requests of its bucket, its rows or the stack split over p
+    logical shards of the card, gives its solo parts and cut bit for
+    bit."""
+    entry, solo, others = _f5_case(card)
+    popshard.set_logical_shards(p, card)
+    try:
+        got = instances.refine_grouped([entry] + others[: stacked - 1],
+                                       max_iters=6, shard="mesh",
+                                       device=card)[0]
+    finally:
+        popshard.set_logical_shards(None)
+    assert torch.equal(got[0], solo[0])
+    assert np.array_equal(got[1], solo[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["mesh", "chunk"])
+@pytest.mark.parametrize("tier", ["lp", "fm"])
+def test_population_routes_over_four_shards_on_card(card, route, tier):
+    """LP (integer weights, the table gain kernel on every shard) and FM
+    (mutation's real-valued member rows, the batched rating kernel on
+    every shard) of 5 members over 4 logical shards of the card: parts
+    and cuts bit-equal to the ``off`` route."""
+    hg = _netlist(250, 330, 41)
+    hga = hg.arrays(device=card)
+    k = 8
+    rng = np.random.default_rng(41)
+    parts = np.stack([refine.rebalance(
+        hg.vertex_weights, rng.integers(0, k, hg.n).astype(np.int32), k,
+        0.08) for _ in range(5)]).astype(np.int32)
+    ew = np.zeros((5, hga.m_pad), np.float32)
+    ew[:, : hg.m] = hg.edge_weights * (1.0 + 0.1 * rng.integers(
+        0, 4, (5, hg.m)))
+    if tier == "lp":
+        run = lambda shard: refine.lp_refine_population(
+            hga, parts, k, 0.08, max_iters=6, shard=shard)
+    else:
+        run = lambda shard: refine.fm_refine_population(
+            hga, parts, k, 0.08, edge_weights_pop=ew, shard=shard)
+    want = run("off")
+    popshard.set_logical_shards(4, card)
+    try:
+        ops.reset_launch_counts()
+        got = run(route)
+        counts = ops.launch_counts()
+    finally:
+        popshard.set_logical_shards(None)
+    assert torch.equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
+    assert counts["gain_table" if tier == "lp"
+                  else "rating_segment_sum_batch"] > 0
 
 
 # --------------------------------------------------------------------------

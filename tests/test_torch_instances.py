@@ -326,10 +326,12 @@ def test_impart_instances_validation(kw, match, duo):
                                  "shard mesh", "shard chunk",
                                  "model_shard mesh", "pop_shard config"])
 def test_later_slices_raise(how, duo):
-    """The mesh and chunk routes belong to a later slice and raise; the
-    incumbent entries and stacks (bounded migration) are ported: an
-    incumbent entry equals its solo budgeted refinement, and a stack
-    carries its incumbent and an infinite budget for a None one."""
+    """The model axis belongs to a later slice and raises; the mesh and
+    chunk routes are ported (over the CPU's pool of one device they give
+    the single-device bits), and so are the incumbent entries and stacks
+    (bounded migration): an incumbent entry equals its solo budgeted
+    refinement, and a stack carries its incumbent and an infinite budget
+    for a None one."""
     hga = port_hg(duo[0]).arrays(device="cpu")
     parts = np.zeros((2, hga.n_pad), np.int32)
     if how == "incumbent entry":
@@ -347,15 +349,26 @@ def test_later_slices_raise(how, duo):
         assert batch.incumbent.shape == (1, hga.n_pad)
         assert bool(torch.isinf(batch.mig_budget).all())
         return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        if how == "pop_shard config":
-            impart_partition_instances(
-                [port_hg(duo[0])], [ImpartConfig(k=2, pop_shard="mesh")],
-                device="cpu")
-        else:
-            arg, route = how.split()
-            instances.refine_grouped([(hga, parts, 2, 0.1)], device="cpu",
-                                     **{arg: route})
+    if how == "pop_shard config":
+        got, = impart_partition_instances(
+            [port_hg(duo[0])], [ImpartConfig(k=2, pop_shard="mesh")],
+            device="cpu")
+        want, = impart_partition_instances(
+            [port_hg(duo[0])], [ImpartConfig(k=2)], device="cpu")
+        assert_bit_equal(got.part, want.part, "part")
+        assert got.cut == want.cut
+        return
+    arg, route = how.split()
+    entries = [(hga, parts, 2, 0.1), (hga, parts + 1, 2, 0.1)]
+    if arg == "model_shard":
+        with pytest.raises(NotImplementedError, match="later slice"):
+            instances.refine_grouped(entries, device="cpu", **{arg: route})
+        return
+    got = instances.refine_grouped(entries, device="cpu", **{arg: route})
+    want = instances.refine_grouped(entries, device="cpu")
+    for (gp, gc), (wp, wc) in zip(got, want):
+        assert_bit_equal(gp, wp, "parts")
+        assert_bit_equal(gc, wc, "cuts")
 
 
 @pytest.mark.parametrize("entry", ["refine_grouped", "vcycle_instances",

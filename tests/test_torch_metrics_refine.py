@@ -178,11 +178,18 @@ def test_rebalance_equal(small_hg):
     dict(incumbent=np.zeros(4, np.int32), mig_budget=1.0)],
     ids=["shard", "model_shard", "incumbent"])
 def test_later_slice_options_raise(kw, tiny_hg):
-    """The mesh options belong to a later slice and raise; the incumbent
-    branch (bounded migration) is ported and keeps its budget."""
+    """The model axis belongs to a later slice and raises; the incumbent
+    branch (bounded migration) is ported and keeps its budget, and so is
+    the mesh route, which over the CPU's pool of one device gives the
+    single-device bits."""
     hga = port_arrays(tiny_hg.structural_copy().arrays())
     parts = np.zeros((1, hga.n_pad), np.int32)
-    if "incumbent" in kw:
+    if "shard" in kw:
+        got = refine.refine_population(hga, parts, 2, 0.1, device=CPU, **kw)
+        want = refine.refine_population(hga, parts, 2, 0.1, device=CPU)
+        assert_bit_equal(got[0], want[0], "parts")
+        assert_bit_equal(got[1], want[1], "cuts")
+    elif "incumbent" in kw:
         out, _ = refine.refine_population(hga, parts, 2, 0.1, device=CPU,
                                           **kw)
         inc = refine.pad_part(kw["incumbent"], hga.n_pad)

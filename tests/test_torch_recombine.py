@@ -59,8 +59,9 @@ def test_overlay_clustering_and_ring_partners():
     stacked = np.stack([a, b, a + 1])
     assert_bit_equal(popshard.ring_partners(stacked, shard="off"),
                      np.roll(stacked, -1, axis=0))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        popshard.ring_partners(stacked, shard="mesh")
+    assert_bit_equal(popshard.ring_partners(stacked, shard="mesh",
+                                            device="cpu"),
+                     np.roll(stacked, -1, axis=0))
 
 
 @pytest.mark.parametrize("seed,k,eps", [(1, 2, 0.0), (2, 3, 0.34),
