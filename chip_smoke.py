@@ -81,8 +81,10 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    ibm08 in one 4-slot service, each bit-equal to solo and checked on the
    host and on the card; and the reference's robustness soak (six fault
    plans, device loss included), every fault fired, every request in a
-   terminal state and every completed answer bit-equal to solo; and
-   F5's grouping (ibm01_like beside ibm08_like cold and its refresh,
+   terminal state and every completed answer bit-equal to solo, and its
+   device-loss plan once more over 2 logical shards of the card on the
+   ``mesh`` and ``chunk`` routes (the pool shrinks to one in mid-run);
+   and F5's grouping (ibm01_like beside ibm08_like cold and its refresh,
    admitted at once), each answer bit-equal to solo;
 13b. the population axis over a pool of logical shards of the card
    (``popshard.set_logical_shards``, the counterpart of the reference's
@@ -95,6 +97,15 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    ``impart_partition_instances`` on the three ISPD98-sized requests
    under both routes over 4 shards; all bit-equal to the ``off`` route,
    each route's wall printed beside the card;
+13c. the model axis (``model_shard="mesh"``, DESIGN.md §15) over (pop,
+   model) grids of logical shards: both refinement tiers on ibm01_like
+   and ibm08_like levels (#4 on every pin block for member rows, no
+   #1/#2), the sharded contraction of ``device_coarsen`` (ibm08_like) and
+   ``population_coarsen`` (ibm01_like, 7 members), the n = 10**6
+   ``giant_netlist`` that exceeds a device-memory budget unsharded and
+   completes sharded (its cut recounted through #7/#8), and the
+   population step over (pop 4, model 2); all bit-equal to the
+   replicated route;
 14. the placement substrate's serving path (``repro_torch.models``,
    ``repro_torch.apps.placement``): DLRM at the MLPerf width (each table
    capped at ``SUBSTRATE_ROW_CAP`` rows) at serve_p99, serve_bulk and
@@ -151,7 +162,7 @@ its cut once more on the card through ``ops.connectivity`` and
 the ops route), which must agree with the host.
 
 ``--phases`` takes a comma list of
-``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances,incremental,service,popshard,substrate,lm,train``
+``kernels,cardtests,parity,off,memetic,cli,ops,sched,instances,incremental,service,popshard,modelshard,substrate,lm,train``
 (default: all; empty for none) for runs that debug one phase; the kernels line is only printed
 when every phase ran.  ``--repair-cost=DIR`` then times the static
 memetic run of the ``sched`` phase with its mutation seconds on the
@@ -217,7 +228,7 @@ KERNEL_META = {
 }
 PHASES = ("kernels", "cardtests", "parity", "off", "memetic", "cli", "ops",
           "sched", "instances", "incremental", "service", "popshard",
-          "substrate", "lm", "train")
+          "modelshard", "substrate", "lm", "train")
 
 # the largest level FM refines (``refine.refine_population``'s default)
 FM_NODE_LIMIT = 4096
@@ -2304,6 +2315,8 @@ SOAK_PLANS = (
               "4:corrupt:slot=0,mode=block_range;5:crash"),
 )
 # the events each plan must show (its faults fired and were handled)
+# the device-loss plan of the pooled soak: one of 2 logical shards lost
+SOAK_POOL_PLAN = "3:device_loss"
 SOAK_EVENTS = {
     "none": set(), "straggler": {"straggler_injected"}, "crash": {"crash"},
     "corrupt": {"corrupt_injected", "quarantine"},
@@ -2365,6 +2378,7 @@ def run_service_path(must_launch):
     import torch
     from repro_torch.data.hypergraphs import (_modular_netlist, drift_stream,
                                               ispd_like, request_stream)
+    from repro_torch.core import popshard
     from repro_torch.kernels import ops
     from repro_torch.runtime.elastic import restore_device_pool
     from repro_torch.serve import (FaultPlan, PartitionRequest,
@@ -2628,6 +2642,47 @@ def run_service_path(must_launch):
                 raise AssertionError(f"service soak {name}: fired={fired}, "
                                      f"terminal={terminal}, equal={equal}, "
                                      f"events {kinds}, losses {losses}")
+        # the device-loss plan over a pool of 2 logical shards: the loss
+        # shrinks the pool to one and the survivors' mesh serves on
+        for route in ("mesh", "chunk"):
+            plan = FaultPlan.parse(SOAK_POOL_PLAN)
+
+            def run():
+                svc = PartitionService(
+                    slots=4, alpha=2, lp_iters=4, contraction_limit_factor=16,
+                    ckpt_every=1, fault_plan=plan, shard=route,
+                    ckpt_dir=os.path.join(tmp, f"pool-{route}"),
+                    device="cuda")
+                for req in soak:
+                    svc.submit(PartitionRequest(
+                        name=req.name, hg=req.hg, k=req.k, eps=req.eps,
+                        seed=req.seed))
+                svc.drain()
+                return svc, len(popshard.local_devices("cuda"))
+            popshard.set_logical_shards(2, "cuda")
+            try:
+                (svc, left), wall, counts = timed(run)
+            finally:
+                restore_device_pool("cuda")
+                popshard.set_logical_shards(None, "cuda")
+            losses = [e for e in svc.events if e["kind"] == "device_loss"]
+            # requests in flight at the loss resume ("recovered"), queued
+            # ones run on the survivors' mesh ("ok")
+            equal = all(same(svc.results[r.name], *solo[r.name])
+                        for r in soak)
+            states = {svc.results[r.name].status for r in soak}
+            print(f"[service] soak device_loss over 2 logical shards, "
+                  f"shard={route}: wall_s {wall!r}, outcomes "
+                  f"{svc.outcome_counts()}, survivors "
+                  f"{[e['survivors'] for e in losses]} (pool left {left}), "
+                  f"recovery_s {[e['recovery_s'] for e in losses]!r}; every "
+                  f"answer == solo: {equal}")
+            if not (equal and plan.pending == 0 and left == 1
+                    and "recovered" in states
+                    and states <= {"ok", "recovered"}
+                    and [e["survivors"] for e in losses] == [1]):
+                raise AssertionError(f"service pooled soak {route}: "
+                                     f"equal={equal}, losses {losses}")
     missing = [n for n in must_launch if path_total.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"service path: kernels never launched: "
@@ -2717,6 +2772,7 @@ def run_popshard_path(must_launch, smi: str):
         if design not in hiers:
             hiers[design] = build_hierarchy(ispd_like(design, 1.0), k,
                                             seed=0, device="cuda")
+            _SHARED_RUNS[("hier", design)] = hiers[design]
         hier = hiers[design]
         li = 0 if which == "finest" else min(
             i for i in range(hier.num_levels)
@@ -2828,6 +2884,282 @@ def run_popshard_path(must_launch, smi: str):
     missing = [n for n in must_launch if total.get(n, 0) == 0]
     if missing:
         raise AssertionError(f"popshard path: kernels never launched: "
+                             f"{missing}")
+    return total
+
+
+# the modelshard phase: the model axis (13c) over (pop, model) grids of
+# logical shards of the card: pin tables in row blocks over "model", the
+# pin-level sums added over the blocks; every result held to the
+# replicated (``off``) route bit for bit
+MODELSHARD_GRIDS = ((1, 2), (2, 2), (1, 4))   # (pop, model)
+# (design, k, level, weights): the finest ibm01 level (LP) with integer
+# weights and integer-valued member rows (their gain sums run #4 on every
+# block), ibm01's first level with n <= FM_NODE_LIMIT (LP and FM) on
+# member rows, ibm08's finest level (LP) at k 64
+MODELSHARD_LEVELS = (("ibm01_like", 16, "finest", ("integer", "member")),
+                     ("ibm01_like", 16, "coarse", ("member",)),
+                     ("ibm08_like", 64, "finest", ("integer",)))
+# the giant instance of the reference's OOM test: n 10**6, m 1.3 * 10**6,
+# k 8, two members, one LP iteration
+MODELSHARD_GIANT = (1_000_000, 1_300_000, 5, 8)
+MODELSHARD_POP_STEPS = 4
+
+
+def _grid(pop: int, model: int):
+    """Make the card's pool ``pop * model`` logical shards in a (pop,
+    model) grid; returns the mesh."""
+    from repro_torch.core import popshard
+    os.environ["REPRO_POP_MESH_MODEL"] = str(model)
+    popshard.set_logical_shards(pop * model, "cuda")
+    mesh = popshard.pop_mesh("cuda")
+    if mesh.shape != {"pop": pop, "model": model}:
+        raise AssertionError(f"modelshard grid {mesh.shape}")
+    return mesh
+
+
+def run_modelshard_path(must_launch, smi: str):
+    """Phase ``modelshard``: the model axis (DESIGN.md §15) on the card
+    over (pop, model) grids of logical shards, every result bit-equal to
+    the replicated route, each wall printed as a multiple of ``off``'s.
+
+    (a) ``refine_population`` (LP; LP and FM on the coarse level) of
+    ``POPSHARD_ALPHA`` members on the levels of ``MODELSHARD_LEVELS``
+    with ``shard="mesh", model_shard="mesh"`` over the grids of
+    ``MODELSHARD_GRIDS``: #4 launches on every pin block for the member
+    rows' gain sums, #1/#2 never (the blocks carry no incidence layout).
+    (b) ``build_hierarchy`` (device engine) of ibm08_like and
+    ``population_coarsen`` of ibm01_like with 7 members, contracted over
+    a (2, 2) grid, every level against the replicated contraction.  (c)
+    ``giant_netlist`` (n 10**6) at k 8 with two members under a
+    ``REPRO_DEVICE_MEM_BUDGET`` between its 1-way and 2-way structure
+    bytes: the replicated mesh dispatch raises, the model route
+    completes, and its cut, recomputed on the card through #7/#8, is the
+    reported one.  (d) ``make_population_step`` over (pop 4, model 2) on
+    ibm01_like, ``MODELSHARD_POP_STEPS`` steps against (pop 4, model 1):
+    parts and cuts equal, the mean cut not growing, every member
+    balanced.  Returns the launches of the model routes."""
+    import numpy as np
+    import torch
+    from repro_torch.core import metrics, popshard, refine
+    from repro_torch.core.dcoarsen import build_hierarchy, population_coarsen
+    from repro_torch.core.population import make_population_step
+    from repro_torch.data.hypergraphs import giant_netlist, ispd_like
+    from repro_torch.kernels import ops
+    total = {}
+
+    def timed(fn, grid=None, routed=True):
+        try:
+            if grid is not None:
+                _grid(*grid)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("REPRO_POP_MESH_MODEL", None)
+            popshard.set_logical_shards(None, "cuda")
+        counts = ops.launch_counts()
+        if routed:
+            _add_counts(total, counts)
+        return out, wall, counts
+
+    def same_levels(a, b, cohort):
+        if a.num_levels != b.num_levels:
+            return False
+        for la, lb in zip(a.levels, b.levels):
+            for f in ("pin_vertex", "pin_edge", "vertex_weights",
+                      "edge_weights", "edge_sizes"):
+                if not torch.equal(getattr(la.hga, f), getattr(lb.hga, f)):
+                    return False
+            if cohort and not (torch.equal(la.ew_pop, lb.ew_pop)
+                               and torch.equal(la.parts, lb.parts)):
+                return False
+        return True
+
+    # (a) both tiers on single levels
+    hiers = {}
+    for design, k, which, kinds in MODELSHARD_LEVELS:
+        if design not in hiers:
+            hiers[design] = _SHARED_RUNS.get(("hier", design)) or \
+                build_hierarchy(ispd_like(design, 1.0), k, seed=0,
+                                device="cuda")
+        hier = hiers[design]
+        li = 0 if which == "finest" else min(
+            i for i in range(hier.num_levels)
+            if hier.level_n(i) <= FM_NODE_LIMIT)
+        hga, host = hier.level_arrays(li), hier.level_host(li)
+        rng = np.random.default_rng(200 + li)
+        parts = np.stack([refine.rebalance(
+            host.vertex_weights, rng.integers(0, k, host.n).astype(np.int32),
+            k, 0.03) for _ in range(POPSHARD_ALPHA)]).astype(np.int32)
+        ew = np.zeros((POPSHARD_ALPHA, hga.m_pad), np.float32)
+        ew[:, : host.m] = host.edge_weights * rng.integers(
+            1, 4, (POPSHARD_ALPHA, host.m))
+        for weights in kinds:
+            ew_arg = ew if weights == "member" else None
+
+            def run(**kw):
+                return refine.refine_population(
+                    hga, parts, k, 0.03, fm_node_limit=FM_NODE_LIMIT,
+                    max_iters=POPSHARD_ITERS, edge_weights_pop=ew_arg,
+                    device="cuda", **kw)
+            (want_p, want_c), w_off, c_off = timed(
+                lambda: run(shard="off"), routed=False)
+            walls, launches, bad = [f"off {w_off!r}"], [], []
+            for grid in MODELSHARD_GRIDS:
+                (got_p, got_c), w, counts = timed(
+                    lambda: run(shard="mesh", model_shard="mesh"), grid)
+                tag = f"({grid[0]}, {grid[1]})"
+                walls.append(f"{tag} {w!r} ({w / w_off:.2f} x off)")
+                r4 = counts["rating_segment_sum_batch"]
+                r4_off = c_off["rating_segment_sum_batch"]
+                launches.append(f"{tag} #4 {r4} (off {r4_off}), #1/#2 "
+                                f"{counts['gain_table']}/"
+                                f"{counts['gain_stream']}")
+                if not (torch.equal(got_p, want_p)
+                        and np.array_equal(got_c, want_c)
+                        and counts["gain_table"] == counts["gain_stream"] == 0
+                        and (weights == "integer" or r4 >= grid[1])):
+                    bad.append(tag)
+            print(f"[modelshard] {design} k={k} level {li} n={hga.n} "
+                  f"p_pad={hga.p_pad} {weights} weights, alpha "
+                  f"{POPSHARD_ALPHA}, shard=mesh model_shard=mesh over "
+                  f"(pop, model): walls (s) {', '.join(walls)} | {smi}")
+            print(f"[modelshard] {design} level {li} {weights}: launches "
+                  f"{'; '.join(launches)}; every grid == off (parts, "
+                  f"cuts), no #1/#2 on the model route: {not bad}")
+            if bad:
+                raise AssertionError(f"modelshard {design} level {li} "
+                                     f"{weights}: grids differ from off or "
+                                     f"launch the gain kernels: {bad}")
+
+    # (b) the sharded contraction
+    hg08 = ispd_like("ibm08_like", 1.0)
+    want, w_off, _ = timed(lambda: build_hierarchy(
+        hg08, 64, seed=0, path="device", device="cuda"), routed=False)
+    got, w, counts = timed(lambda: build_hierarchy(
+        hg08, 64, seed=0, path="device", model_shard="mesh",
+        device="cuda"), (2, 2))
+    ok = same_levels(got, want, False)
+    print(f"[modelshard] device_coarsen ibm08_like k=64 over (2, 2): "
+          f"{got.num_levels} levels {got.sizes()}, wall_s {w!r} "
+          f"({w / w_off:.2f} x off {w_off!r}); every level == off: {ok}; "
+          f"#3 {counts['rating_segment_sum']} | {smi}")
+    if not ok:
+        raise AssertionError("modelshard device_coarsen differs from off")
+    hg01 = ispd_like("ibm01_like", 1.0)
+    rng = np.random.default_rng(9)
+    base = (np.arange(hg01.n) * 16 // hg01.n).astype(np.int32)
+    cohort = np.stack([np.where(rng.random(hg01.n) < 0.02,
+                                rng.integers(0, 16, hg01.n), base)
+                       for _ in range(7)]).astype(np.int32)
+    w_pop = np.stack([hg01.edge_weights * (1.0 + 0.1 * rng.integers(
+        0, 4, hg01.m)) for _ in range(7)]).astype(np.float32)
+    want, w_off, _ = timed(lambda: population_coarsen(
+        hg01, cohort, w_pop, 16, seed=0, device="cuda"), routed=False)
+    got, w, counts = timed(lambda: population_coarsen(
+        hg01, cohort, w_pop, 16, seed=0, model_shard="mesh",
+        device="cuda"), (2, 2))
+    ok = same_levels(got, want, True)
+    print(f"[modelshard] population_coarsen ibm01_like, 7 members, over "
+          f"(2, 2): {got.num_levels} levels {got.sizes()}, wall_s {w!r} "
+          f"({w / w_off:.2f} x off {w_off!r}); every level == off "
+          f"(structure, parts, ew_pop): {ok}; #4 "
+          f"{counts['rating_segment_sum_batch']} | {smi}")
+    if not ok:
+        raise AssertionError("modelshard population_coarsen differs")
+
+    # (c) the giant instance: unsharded raises, sharded completes
+    n, m, seed, k = MODELSHARD_GIANT
+    t0 = time.perf_counter()
+    giant = giant_netlist(n, m, seed=seed)
+    hga = giant.arrays(device="cuda")
+    t_build = time.perf_counter() - t0
+    one = popshard.structure_bytes_per_device(hga, 1)
+    two = popshard.structure_bytes_per_device(hga, 2)
+    budget = (one + two) // 2
+    warm = (np.arange(n, dtype=np.int64) * k // n).astype(np.int32)
+    members = [warm.copy(), np.roll(warm, 1)]
+    os.environ["REPRO_DEVICE_MEM_BUDGET"] = str(budget)
+    try:
+        def lp(model):
+            return refine.lp_refine_population(
+                hga, [p.copy() for p in members], k, 0.05, max_iters=1,
+                shard="mesh", model_shard=model)
+        try:
+            timed(lambda: lp("off"), (2, 2), routed=False)
+            raised = False
+        except popshard.DeviceBudgetExceeded:
+            raised = True
+        (out, cuts), w, counts = timed(lambda: lp("mesh"), (2, 2))
+    finally:
+        del os.environ["REPRO_DEVICE_MEM_BUDGET"]
+    part0 = out[0, :n].cpu().numpy()
+    host_cut, balanced, _, _ = host_cut_and_balance(giant, part0, k, 0.05)
+    cc = card_cut_check(giant, part0, k, host_cut, "modelshard giant")
+    _add_counts(total, cc)
+    start = float(metrics.cutsize(hga, refine.pad_part(warm, hga.n_pad,
+                                                       "cuda"), k))
+    ok = (raised and float(cuts[0]) == host_cut and balanced
+          and float(cuts[0]) <= start)
+    print(f"[modelshard] giant_netlist n={n} m={m} p_pad={hga.p_pad} k={k}, "
+          f"2 members (built in {t_build!r} s): structure bytes/device "
+          f"1-way {one}, 2-way {two}, REPRO_DEVICE_MEM_BUDGET {budget}; "
+          f"unsharded raises DeviceBudgetExceeded: {raised}; sharded over "
+          f"(2, 2) wall_s {w!r}, cut {float(cuts[0])!r} (warm start "
+          f"{start!r}) == host {host_cut!r} == card #8 recount: {ok}; "
+          f"launches { {n: c for n, c in counts.items() if c} } | {smi}")
+    if not ok:
+        raise AssertionError("modelshard giant instance failed its claim")
+    del hga, giant
+
+    # (d) the population step over (pop 4, model 2)
+    hga = hg01.arrays(device="cuda")
+    args = [hga.pin_vertex, hga.pin_edge, hga.vertex_weights,
+            hga.edge_weights, hga.edge_sizes]
+    rng = np.random.default_rng(4)
+    start = np.zeros((4, hga.n_pad), np.int32)
+    for i in range(4):
+        start[i, : hg01.n] = refine.rebalance(
+            hg01.vertex_weights,
+            rng.integers(0, 16, hg01.n).astype(np.int32), 16, 0.03)
+
+    def steps(grid):
+        def go():
+            step = make_population_step(popshard.pop_mesh("cuda"),
+                                        n=hg01.n, m=hg01.m, k=16, eps=0.03,
+                                        refine_rounds=3)
+            parts, trail = torch.from_numpy(start).cuda(), []
+            for _ in range(MODELSHARD_POP_STEPS):
+                parts, cuts = step(*args, parts)
+                trail.append((parts.clone(), cuts.clone()))
+            return trail
+        return timed(go, grid, routed=grid[1] > 1)
+    want, w_off, _ = steps((4, 1))
+    got, w, counts = steps((4, 2))
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in zip(got, want))
+    means = [float(c.mean()) for _, c in got]
+    final = got[-1][0].cpu().numpy()
+    checks = [host_cut_and_balance(hg01, final[i, : hg01.n], 16, 0.03)
+              for i in range(4)]
+    ok = (same and all(b <= a for a, b in zip(means, means[1:]))
+          and all(c[1] for c in checks)
+          and [c[0] for c in checks] == [float(x) for x in got[-1][1]])
+    print(f"[modelshard] population step ibm01_like k=16, 4 members, "
+          f"{MODELSHARD_POP_STEPS} steps over (4, 2): wall_s {w!r} "
+          f"({w / w_off:.2f} x (4, 1) {w_off!r}); mean cuts {means}; == "
+          f"(4, 1) every step {same}; balanced, cuts == host recount, "
+          f"means non-increasing: {ok}; launches "
+          f"{ {n: c for n, c in counts.items() if c} } | {smi}")
+    if not ok:
+        raise AssertionError("modelshard population step failed")
+    missing = [n for n in must_launch if total.get(n, 0) == 0]
+    if missing:
+        raise AssertionError(f"modelshard path: kernels never launched: "
                              f"{missing}")
     return total
 
@@ -4082,9 +4414,10 @@ def run_train_path(must_launch) -> dict:
     start beside the gates; (i) the gates: grok-1's SMOKE gate whole, then
     each published-width gate's card step, whose CPU step and comparison
     run in a background thread while the card goes on (phi's beside
-    (ii), codeqwen's beside (iii)-(v); one at a time, so that the host
-    holds one gate's states); with the launch counts zeroed, (ii)-(v) the
-    main path: the LMs, the GNN zoo, DLRM's dense and sparse steps; #4
+    (ii) and (iv), codeqwen's beside (iii) and (v); one at a time, so
+    that the host holds one gate's states); with the launch counts
+    zeroed, (ii)-(v) the main path: the LMs, the GNN zoo, DLRM's dense
+    and sparse steps; #4
     against its plain version at the sparse step's shape; the CLI's
     resume.  Returns the main path's launches."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4112,6 +4445,11 @@ def run_train_path(must_launch) -> dict:
         t1 = time.perf_counter()
         _train_lm(dense_lm, *TRAIN_LM[dense_lm], dev)
         walls[dense_lm] = time.perf_counter() - t1
+        # the GNN zoo's cells also run while phi's CPU step does (the card
+        # waited 30.7 s for it after codeqwen alone)
+        t1 = time.perf_counter()
+        _train_gnn(dev)
+        walls["gnn"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         job.result()
         walls["wait for the gates' cpu steps"] = time.perf_counter() - t1
@@ -4122,9 +4460,6 @@ def run_train_path(must_launch) -> dict:
         t1 = time.perf_counter()
         _train_lm(moe_lm, *TRAIN_LM[moe_lm], dev)
         walls[moe_lm] = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        _train_gnn(dev)
-        walls["gnn"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         state, host, cfg = _train_dlrm(dev)
         torch.cuda.synchronize()
@@ -4632,6 +4967,11 @@ def main() -> int:
                                "rating_segment_sum",
                                "rating_segment_sum_batch"), smi))
     mark("popshard")
+    if "modelshard" in phases:
+        add(run_modelshard_path(("rating_segment_sum",
+                                 "rating_segment_sum_batch", "connectivity",
+                                 "cutsize"), smi))
+    mark("modelshard")
     if "substrate" in phases:
         add(run_substrate_path(("embedding_bag",)))
     mark("substrate")

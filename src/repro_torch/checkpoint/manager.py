@@ -21,8 +21,11 @@
   CUDA).
 * ``restore(state_like, device=...)`` rebuilds the structure of
   ``state_like`` (nested dicts, lists and tuples); ``device`` places
-  every leaf as a tensor on that device.  A restore sharded over a mesh
-  belongs to the multi-device slice.
+  every leaf as a tensor on that device.  ``shardings=`` (a tree of
+  ``popshard.PopSharding``/``Replicated`` placements matching the state)
+  places every leaf over the *current* pool of devices instead, as its
+  blocks or copies, whatever pool wrote it (elasticity: a pool that
+  shrank after a device loss included).
 """
 from __future__ import annotations
 
@@ -210,21 +213,41 @@ class CheckpointManager:
         return items, manifest["extra"]
 
     def restore(self, state_like: Any, step: Optional[int] = None,
-                device: str | torch.device | None = None
-                ) -> Tuple[Any, Dict]:
-        """Restore into the structure of ``state_like``.  With ``device``
-        every leaf becomes a tensor there; without it each leaf takes its
-        template's kind (a tensor on the template tensor's device, else a
-        numpy array)."""
+                device: str | torch.device | None = None,
+                shardings: Any = None) -> Tuple[Any, Dict]:
+        """Restore into the structure of ``state_like``.  With
+        ``shardings`` (a tree matching ``state_like`` with one
+        ``popshard.PopSharding`` or ``Replicated`` per leaf) every leaf
+        is placed over that placement's mesh, the pool as it is now: a
+        ``PopSharding`` leaf becomes the list of its "pop" shards' row
+        blocks, a ``Replicated`` one the list of its copies.  With
+        ``device`` every leaf becomes a tensor there; without either each
+        leaf takes its template's kind (a tensor on the template tensor's
+        device, else a numpy array)."""
         manifest, leaves = self._load(step)
         _, ref_leaves = _flatten_with_paths(state_like)
         if len(leaves) != len(ref_leaves):
             raise ValueError(f"checkpoint has {len(leaves)} leaves, state "
                              f"{len(ref_leaves)}")
+        sh_leaves = None
+        if shardings is not None:
+            _, sh_leaves = _flatten_with_paths(shardings)
+            if len(sh_leaves) != len(leaves):
+                raise ValueError(f"{len(sh_leaves)} placements for "
+                                 f"{len(leaves)} leaves")
         dev = None if device is None else resolve_device(device)
         placed = []
-        for a, ref, dt in zip(leaves, ref_leaves, manifest["dtypes"]):
-            if dev is not None:
+        for i, (a, ref, dt) in enumerate(zip(leaves, ref_leaves,
+                                             manifest["dtypes"])):
+            if sh_leaves is not None:
+                from repro_torch.core.popshard import PopSharding
+                t, sh = _to_tensor(a, dt), sh_leaves[i]
+                npop = sh.mesh.shape["pop"]
+                if isinstance(sh, PopSharding) and t.shape[0] % npop:
+                    raise ValueError(f"leaf {i}: {t.shape[0]} rows do not "
+                                     f"split over {npop} pop shards")
+                placed.append(sh.put(t))
+            elif dev is not None:
                 placed.append(_to_tensor(a, dt).to(dev))
             elif torch.is_tensor(ref):
                 placed.append(_to_tensor(a, dt).to(ref.device))

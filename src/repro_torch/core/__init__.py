@@ -1,6 +1,7 @@
 """IMPart core of the port: data structures, metrics, refinement,
 coarsening, the memetic operators, the operator scheduler, the
-baselines, the driver and incremental repartitioning (counterpart of
+baselines, the driver, incremental repartitioning and the distributed
+population step (counterpart of
 ``repro.core``).  Unlike
 ``repro.core``, the package does not re-export the functions
 ``recombine`` and ``vcycle``, which would hide the modules of the same
@@ -22,6 +23,8 @@ from .mutate import mutate_population, mutate_path, similarity_sets
 from .scheduler import (OperatorScheduler, SchedulerDecision,
                         SchedulerTrace, sched_path, resolve_sched)
 from .vcycle import vcycle_instances, vcycle_population
+from .population import (make_local_population_step, make_population_step,
+                         population_step_fn)
 from .incremental import (incremental_partition, repartition_k_change,
                           IncrementalConfig, IncrementalResult,
                           IncrementalState)
@@ -43,6 +46,8 @@ __all__ = [
     "mutate_population", "mutate_path", "similarity_sets",
     "OperatorScheduler", "SchedulerDecision", "SchedulerTrace",
     "sched_path", "resolve_sched", "vcycle_instances", "vcycle_population",
+    "make_population_step", "make_local_population_step",
+    "population_step_fn",
     "incremental_partition", "repartition_k_change", "IncrementalConfig",
     "IncrementalResult", "IncrementalState",
     "incremental", "instances", "metrics", "refine", "ilp",

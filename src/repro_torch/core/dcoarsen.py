@@ -29,6 +29,13 @@ that share a block in every member, per-member ratings aggregated by
 the batched rating kernel (``ops.rating_segment_sum_batch``), one
 consensus matching from the members' ratings summed in member order,
 and one contraction that carries every member's edge-weight row.
+
+The model axis (``model_shard``, DESIGN.md §15): with the route on and a
+real "model" axis, a round whose pin padding splits over it and whose
+largest edge fits in one block contracts shard-locally
+(``_contract_sharded``), the rating and matching half staying
+replicated (the ratings are not integers); the levels are bit-equal to
+``contract_arrays``'s, ghosts and all.
 """
 from __future__ import annotations
 
@@ -43,8 +50,12 @@ from repro_torch.env import resolve_device, warn_env_once
 from .hypergraph import (Hypergraph, HypergraphArrays, HierarchyArrays,
                          DeviceLevel, contract_arrays, _pad_cols,
                          _round_pow2, _INCIDENCE_LANE_PAD,
-                         _INCIDENCE_MAX_EXPANSION)
+                         _INCIDENCE_MAX_EXPANSION, _contract_vertex_weights,
+                         _contracted, _drop_dead_pins, _edge_hash_partials,
+                         _edge_pin_counts, _merge_edges, _relabel_pins,
+                         _sort_dedup_pins)
 from .coarsen import Hierarchy, coarsen, round_schedule
+from . import metrics, popshard
 
 #: Pair-candidate sampling, mirroring the host ``_candidate_pairs``
 #: defaults: strides 1..MAX_STRIDE within each edge; edges larger than
@@ -78,11 +89,10 @@ def build_hierarchy(hg: Hypergraph, k: int, *, seed: int = 0,
     """Build the multilevel hierarchy with the engine picked by
     ``coarsen_path()`` (or forced via ``path``).  Both return types
     implement the hierarchy protocol the driver consumes; their level
-    arrays live on ``device``."""
-    if model_shard not in (None, "off", "auto"):
-        raise NotImplementedError(
-            f"model_shard={model_shard!r} belongs to a later slice of the "
-            "port (multi-device paths)")
+    arrays live on ``device``.  ``model_shard`` (None =
+    ``REPRO_MODEL_SHARD``) contracts the device engine's rounds over the
+    mesh's "model" axis (``device_coarsen``)."""
+    popshard.resolve_model(model_shard)
     dev = resolve_device(device)
     path = path or coarsen_path(dev)
     if path == "host":
@@ -96,7 +106,8 @@ def build_hierarchy(hg: Hypergraph, k: int, *, seed: int = 0,
                           contraction_limit_factor=contraction_limit_factor,
                           max_rounds=max_rounds, min_shrink=min_shrink,
                           seed=seed, restrict_part=restrict_part,
-                          max_cluster_frac=max_cluster_frac, device=dev)
+                          max_cluster_frac=max_cluster_frac,
+                          model_shard=model_shard, device=dev)
 
 
 # --------------------------------------------------------------------------
@@ -274,20 +285,147 @@ def _mutual_match_dev(hga: HypergraphArrays, lo: torch.Tensor,
     return cid, n_new
 
 
-def _coarsen_round(hga: HypergraphArrays, part, jitter_gen, c_max: float,
-                   max_stride: int, max_edge_size: int):
+def _match_round(hga: HypergraphArrays, part, jitter_gen, c_max: float,
+                 max_stride: int, max_edge_size: int):
+    """Rating and matching, the replicated half of a round: ``(cid,
+    n_new, new_part)``."""
     lo, hi, rating = _pair_ratings(hga, part, max_stride=max_stride,
                                    max_edge_size=max_edge_size)
     jitter = draw_jitter(jitter_gen, lo.shape[0], lo.device)
     cid, n_new = _mutual_match_dev(hga, lo, hi, rating, jitter, c_max)
-    coarse, p_new = contract_arrays(hga, cid, n_new)
     new_part = None
     if part is not None:
         # block of each cluster = block of any member (same by constr.)
         new_part = torch.zeros(hga.n_pad, dtype=torch.int32,
                                device=part.device).scatter_reduce(
             0, cid, part, "amax")
+    return cid, n_new, new_part
+
+
+def _coarsen_round(hga: HypergraphArrays, part, jitter_gen, c_max: float,
+                   max_stride: int, max_edge_size: int, mesh=None):
+    """One round; ``mesh`` (the model route) contracts over its "model"
+    axis (``_contract_sharded``), else ``contract_arrays``."""
+    cid, n_new, new_part = _match_round(hga, part, jitter_gen, c_max,
+                                        max_stride, max_edge_size)
+    if mesh is not None:
+        coarse, p_new = _contract_sharded(hga, cid, n_new, mesh)
+    else:
+        coarse, p_new = contract_arrays(hga, cid, n_new)
     return coarse, cid, new_part, p_new
+
+
+# --------------------------------------------------------------------------
+# the model axis: shard-local contraction over row blocks of the pins
+# --------------------------------------------------------------------------
+def _contract_sharded(hga: HypergraphArrays, cid: torch.Tensor, n_new,
+                      mesh, ew_pop: Optional[torch.Tensor] = None):
+    """``contract_arrays`` with the pin half run on the row blocks of the
+    pin tables over ``mesh``'s "model" axis (pop shard 0's devices,
+    ``popshard.model_blocks``); the same return, bit for bit.
+
+    The pins are edge-contiguous (every producer keeps them so), so an
+    edge's pins are one contiguous run; the edge is owned by the block
+    that holds its first pin, and (``_round_can_shard``: no edge longer
+    than a block) the owner's rows plus its right neighbour's window, the
+    halo, hold the whole edge.  In that window the pins of edges the
+    block does not own become ghost pins, so the dedup, the sizes and the
+    within-edge ranks of the parallel-edge hashes are computed on whole
+    edges; the blocks' integer per-edge partials (sizes, hash sums) add
+    up exactly to the global ones, every [m_pad] decision (merge groups,
+    survivors, dense renumbering) then runs once on the replicated sums,
+    and each block's kept pins are scattered at the sum of the earlier
+    blocks' counts.  Ownership ascends with the edge id, so that
+    reassembles the global (edge, vertex) order."""
+    n_pad, m_pad, p_pad = hga.n_pad, hga.m_pad, hga.p_pad
+    ghost_v, ghost_e = n_pad - 1, m_pad - 1
+    home = hga.device
+    blocks = popshard.model_blocks(hga, mesh, 0)
+    nblk = len(blocks)
+    p_loc = p_pad // nblk
+    new_vw = _contract_vertex_weights(hga, cid)
+
+    # edge ownership: the block of the edge's first live pin
+    first = []
+    for q, b in enumerate(blocks):
+        pe = b.pin_edge.long()
+        gpos = q * p_loc + torch.arange(p_loc, device=b.device)
+        first.append(torch.full((m_pad,), p_pad, dtype=torch.int64,
+                                device=b.device).scatter_reduce(
+            0, pe, torch.where(pe != ghost_e, gpos, p_pad), "amin"))
+    owner = first[0]
+    for f in first[1:]:
+        owner = torch.minimum(owner, f.to(home))
+    owner = owner // p_loc
+
+    # each block's window (its rows and the halo), its owned edges' pins
+    # sorted and deduplicated
+    wins = []
+    for q, b in enumerate(blocks):
+        nxt = blocks[(q + 1) % nblk]
+        c = cid.long().to(b.device)
+        pv = torch.cat([c[b.pin_vertex.long()],
+                        c.to(nxt.device)[nxt.pin_vertex.long()].to(b.device)])
+        pe = torch.cat([b.pin_edge.long(), nxt.pin_edge.long().to(b.device)])
+        mine = (pe != ghost_e) & (owner.to(b.device)[pe] == q)
+        wins.append(_sort_dedup_pins(torch.where(mine, pv, ghost_v),
+                                     torch.where(mine, pe, ghost_e), n_pad,
+                                     ghost_v, ghost_e))
+    sizes = metrics._model_psum(
+        [_edge_pin_counts(pe, live, m_pad) for _, pe, live in wins], home)
+    edge_alive = (torch.arange(m_pad, device=home) < hga.m) & (sizes >= 2)
+    kept, h1s, h2s = [], [], []
+    for pv, pe, live in wins:
+        pv, pe, keep = _drop_dead_pins(pv, pe, live,
+                                       edge_alive.to(pv.device), ghost_v,
+                                       ghost_e)
+        h1, h2 = _edge_hash_partials(pv, pe, keep, m_pad)
+        kept.append((pv, pe))
+        h1s.append(h1)
+        h2s.append(h2)
+    em = _merge_edges(hga, sizes, edge_alive,
+                      metrics._model_psum(h1s, home),
+                      metrics._model_psum(h2s, home))
+
+    # reassemble: each block's live pins, in order, at its offset
+    pv_out = torch.full((p_pad,), ghost_v, dtype=torch.int64, device=home)
+    pe_out = torch.full((p_pad,), ghost_e, dtype=torch.int64, device=home)
+    offset = torch.zeros((), dtype=torch.int64, device=home)
+    for pv, pe in kept:
+        em_b = {key: em[key].to(pv.device)
+                for key in ("keep_edge", "new_eid")}
+        pv, pe = _relabel_pins(pv, pe, em_b, ghost_v, ghost_e)
+        live = pe != ghost_e
+        dest = (offset.to(pv.device)
+                + torch.cumsum(live.to(torch.int64), 0) - 1)[live]
+        pv_out[dest.to(home)] = pv[live].to(home)
+        pe_out[dest.to(home)] = pe[live].to(home)
+        offset = offset + live.sum().to(home)
+    return _contracted(hga, new_vw, em, pv_out, pe_out, n_new, offset,
+                       ew_pop)
+
+
+def _model_mesh(model_shard: Optional[str], device):
+    """The ("pop", "model") mesh of ``device``'s pool when the model
+    route is on and its "model" axis is real, else None (the replicated
+    rounds)."""
+    if popshard.resolve_model(model_shard) != "mesh":
+        return None
+    mesh = popshard.pop_mesh(device)
+    return mesh if mesh.shape["model"] > 1 else None
+
+
+def _round_can_shard(hga: HypergraphArrays, mesh) -> bool:
+    """Whether this round may contract over ``mesh``'s "model" axis: the
+    pin padding splits evenly over it and no edge is longer than a block
+    (so an owner's rows and one halo hold the whole edge).  Reads the
+    largest edge size back (one scalar a round, on the model route
+    only)."""
+    if mesh is None:
+        return False
+    nblk = mesh.shape["model"]
+    return (hga.p_pad % nblk == 0
+            and int(hga.edge_sizes.max()) <= hga.p_pad // nblk)
 
 
 # --------------------------------------------------------------------------
@@ -363,6 +501,7 @@ def device_coarsen(hg: Hypergraph, k: int, *,
                    min_shrink: float = 0.02, seed: int = 0,
                    restrict_part=None,
                    max_cluster_frac: float = 1.0,
+                   model_shard: Optional[str] = None,
                    device: str | torch.device = "cuda") -> HierarchyArrays:
     """Build the multilevel hierarchy on the device.
 
@@ -370,7 +509,11 @@ def device_coarsen(hg: Hypergraph, k: int, *,
     coarsener via ``coarsen.round_schedule``): each round it reads back
     three scalars (n, m, live-pin count), decides done/stalled, and
     re-buckets the new level into its own pow2 padding.  The tie-jitter
-    comes from one ``torch.Generator`` seeded with ``seed``.
+    comes from one ``torch.Generator`` seeded with ``seed``.  On the
+    model route (``model_shard``, None = ``REPRO_MODEL_SHARD``) every
+    round that ``_round_can_shard`` contracts over the "model" axis; the
+    others fall back, round by round, to the replicated contraction,
+    which gives the same bits.
     """
     dev = resolve_device(device)
     sched = round_schedule(hg, k,
@@ -387,13 +530,15 @@ def device_coarsen(hg: Hypergraph, k: int, *,
                           p=hg.num_pins, part=part, host_hg=hg)]
     gen = torch.Generator().manual_seed(seed)
     c_max = float(np.float32(sched.c_max))
+    mesh = _model_mesh(model_shard, dev)
     cur, cur_part, n_cur = hga, part, hg.n
     for _ in range(sched.max_rounds):
         if sched.done(n_cur):
             break
         coarse, cid, new_part, p_new = _coarsen_round(
             cur, cur_part, gen, c_max, max_stride=MAX_STRIDE,
-            max_edge_size=MAX_EDGE_SIZE)
+            max_edge_size=MAX_EDGE_SIZE,
+            mesh=mesh if _round_can_shard(cur, mesh) else None)
         n_new = coarse.n
         if sched.stalled(n_cur, n_new):
             break
@@ -477,17 +622,23 @@ def _member_sum(rows: torch.Tensor) -> torch.Tensor:
 def _coarsen_round_population(hga: HypergraphArrays, parts: torch.Tensor,
                               ew_pop: torch.Tensor, jitter_gen, c_max: float,
                               max_stride: int, max_edge_size: int,
-                              batch: bool):
+                              batch: bool, mesh=None):
     """One cohort round: batched ratings, consensus matching on the
     members' summed ratings (the member's own rating for a cohort of
-    one), and one contraction carrying every weight row."""
+    one), and one contraction carrying every weight row (over ``mesh``'s
+    "model" axis when given, ``_contract_sharded``)."""
     lo, hi, rating_pop = _pair_ratings_population(
         hga, parts, ew_pop, max_stride=max_stride,
         max_edge_size=max_edge_size, batch=batch)
     jitter = draw_jitter(jitter_gen, lo.shape[0], lo.device)
     cid, n_new = _mutual_match_dev(hga, lo, hi, _member_sum(rating_pop),
                                    jitter, c_max)
-    coarse, p_new, ew_new = contract_arrays(hga, cid, n_new, ew_pop=ew_pop)
+    if mesh is not None:
+        coarse, p_new, ew_new = _contract_sharded(hga, cid, n_new, mesh,
+                                                  ew_pop)
+    else:
+        coarse, p_new, ew_new = contract_arrays(hga, cid, n_new,
+                                                ew_pop=ew_pop)
     # block of each cluster = block of any member (the restriction made
     # every merged pair agree in every member)
     new_parts = torch.zeros_like(parts).scatter_reduce(
@@ -559,12 +710,9 @@ def population_coarsen(hg: Hypergraph, parts, ew_pop, k: int, *,
     weights and structure, which the members share); the tie-jitter
     comes from one ``torch.Generator`` seeded with ``seed``, as in
     ``device_coarsen``.  ``batch=False`` aggregates the ratings member by
-    member; the hierarchy is the same either way.
+    member; the hierarchy is the same either way, and so it is on the
+    model route (``model_shard``, as in ``device_coarsen``).
     """
-    if model_shard not in (None, "off", "auto"):
-        raise NotImplementedError(
-            f"model_shard={model_shard!r} belongs to a later slice of the "
-            "port (multi-device paths)")
     dev = resolve_device(device)
     sched = round_schedule(hg, k,
                            contraction_limit_factor=contraction_limit_factor,
@@ -583,13 +731,15 @@ def population_coarsen(hg: Hypergraph, parts, ew_pop, k: int, *,
                               p=hg.num_pins)]
     gen = torch.Generator().manual_seed(seed)
     c_max = float(np.float32(sched.c_max))
+    mesh = _model_mesh(model_shard, dev)
     cur, cur_parts, cur_ew, n_cur = hga, parts_t, ew_t, hg.n
     for _ in range(sched.max_rounds):
         if sched.done(n_cur):
             break
         coarse, cid, new_parts, new_ew, p_new = _coarsen_round_population(
             cur, cur_parts, cur_ew, gen, c_max, max_stride=MAX_STRIDE,
-            max_edge_size=MAX_EDGE_SIZE, batch=batch)
+            max_edge_size=MAX_EDGE_SIZE, batch=batch,
+            mesh=mesh if _round_can_shard(cur, mesh) else None)
         n_new = coarse.n
         if sched.stalled(n_cur, n_new):
             break

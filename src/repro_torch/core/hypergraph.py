@@ -523,67 +523,122 @@ def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new,
     sums go through the rating kernel's fixed-order segment sum (the
     parallel-edge groups are sorted), so two runs give the same bits.
     """
-    from repro_torch.kernels import ops
-    n_pad, m_pad, p_pad = hga.n_pad, hga.m_pad, hga.p_pad
-    dev = hga.device
-    ghost_v = n_pad - 1
-    ghost_e = m_pad - 1
-    arange_m = torch.arange(m_pad, device=dev)
-    cid = cid.long()
+    n_pad, m_pad = hga.n_pad, hga.m_pad
+    ghost_v, ghost_e = n_pad - 1, m_pad - 1
+    new_vw = _contract_vertex_weights(hga, cid)
+    # the pin half: one window holding every pin
+    pv, pe, live_pin = _sort_dedup_pins(
+        cid.long()[hga.pin_vertex.long()], hga.pin_edge.long(), n_pad,
+        ghost_v, ghost_e)
+    sizes = _edge_pin_counts(pe, live_pin, m_pad)
+    edge_alive = (torch.arange(m_pad, device=hga.device) < hga.m) \
+        & (sizes >= 2)
+    pv, pe, keep_pin = _drop_dead_pins(pv, pe, live_pin, edge_alive,
+                                       ghost_v, ghost_e)
+    h1, h2 = _edge_hash_partials(pv, pe, keep_pin, m_pad)
+    em = _merge_edges(hga, sizes, edge_alive, h1, h2)
+    pv, pe = _relabel_pins(pv, pe, em, ghost_v, ghost_e)
 
+    # compact ghosts to the tail (live pins stay (edge, vertex) sorted,
+    # so the next round's stride pairing sees contiguous edges)
+    live_now = pe != ghost_e
+    pv, pe = _compact_ghosts(live_now, [pv, pe], [ghost_v, ghost_e])
+    return _contracted(hga, new_vw, em, pv, pe, n_new, live_now.sum(),
+                       ew_pop)
+
+
+# The pieces of ``contract_arrays``, shared with the model axis's
+# shard-local contraction (``dcoarsen._contract_sharded``): the pin half
+# runs on a window of pins holding whole edges (all of them here, one
+# model shard's owned edges there), the edge half on the replicated
+# [m_pad] sums.
+def _contract_vertex_weights(hga: HypergraphArrays,
+                             cid: torch.Tensor) -> torch.Tensor:
+    """[n_pad] f32 cluster weights (in a fixed order on real-valued
+    vertex weights)."""
+    from repro_torch.kernels import ops
+    cid = cid.long()
     if hga.real_vertex_weights:
         # real-valued weights: a stable sort by cluster makes the sum a
         # sorted-segment sum in fixed order (each cluster's members in
         # vertex order, as ``index_add_`` adds them on the CPU)
         vorder = torch.argsort(cid, stable=True)
-        new_vw = ops.rating_segment_sum(
+        return ops.rating_segment_sum(
             hga.vertex_weights[vorder].contiguous(),
-            cid[vorder].to(torch.int32), n_pad)
-    else:
-        new_vw = torch.zeros(n_pad, dtype=torch.float32,
-                             device=dev).index_add_(0, cid,
-                                                    hga.vertex_weights)
+            cid[vorder].to(torch.int32), hga.n_pad)
+    return torch.zeros(hga.n_pad, dtype=torch.float32,
+                       device=hga.device).index_add_(0, cid,
+                                                     hga.vertex_weights)
 
-    # sort pins by (edge, vertex): an int64 composite key is exact here
-    # (the reference needs a two-key sort because it has no int64)
-    pv = cid[hga.pin_vertex.long()]
-    pe = hga.pin_edge.long()
+
+def _sort_dedup_pins(pv: torch.Tensor, pe: torch.Tensor, n_pad: int,
+                     ghost_v: int, ghost_e: int):
+    """Pins (coarse vertex ids, int64) sorted by (edge, vertex), every
+    within-edge duplicate turned into a ghost pin; returns ``(pv, pe,
+    live)``.  An int64 composite key is exact here (the reference needs
+    a two-key sort because it has no int64)."""
     order = torch.argsort(pe * n_pad + pv, stable=True)
     pe, pv = pe[order], pv[order]
-    dup = torch.zeros(p_pad, dtype=torch.bool, device=dev)
+    dup = torch.zeros(pv.shape[0], dtype=torch.bool, device=pv.device)
     dup[1:] = (pe[1:] == pe[:-1]) & (pv[1:] == pv[:-1]) & (pe[1:] != ghost_e)
     pv = torch.where(dup, ghost_v, pv)
     pe = torch.where(dup, ghost_e, pe)
+    return pv, pe, pe != ghost_e
 
-    # post-dedup sizes; single-pin (and empty) edges vanish
-    live_pin = pe != ghost_e
-    sizes = torch.zeros(m_pad, dtype=torch.int64, device=dev).index_add_(
-        0, pe, live_pin.to(torch.int64))
-    edge_alive = (arange_m < hga.m) & (sizes >= 2)
-    keep_pin = live_pin & edge_alive[pe]
-    pv = torch.where(keep_pin, pv, ghost_v)
-    pe = torch.where(keep_pin, pe, ghost_e)
 
-    # parallel-edge detection: the reference's two uint32 polynomial
-    # hashes over each edge's live-pin ranks, emulated in int64 (same
-    # values, so the same merge groups, collisions included)
-    live_rank = torch.cumsum(keep_pin.to(torch.int64), 0) - 1
-    first_rank = torch.full((m_pad,), p_pad, dtype=torch.int64,
-                            device=dev).scatter_reduce(
-        0, pe, torch.where(keep_pin, live_rank, p_pad), "amin")
+def _edge_pin_counts(pe: torch.Tensor, live: torch.Tensor,
+                     m_pad: int) -> torch.Tensor:
+    """[m_pad] int64 live pins per edge (post-dedup sizes)."""
+    return torch.zeros(m_pad, dtype=torch.int64, device=pe.device
+                       ).index_add_(0, pe, live.to(torch.int64))
+
+
+def _drop_dead_pins(pv, pe, live, edge_alive, ghost_v: int, ghost_e: int):
+    """Ghost the pins of dead (single-pin, empty) edges; returns ``(pv,
+    pe, keep)``."""
+    keep = live & edge_alive[pe]
+    return (torch.where(keep, pv, ghost_v), torch.where(keep, pe, ghost_e),
+            keep)
+
+
+def _edge_hash_partials(pv, pe, keep: torch.Tensor, m_pad: int):
+    """[m_pad] int64 sums (not yet reduced mod 2**32) of the two uint32
+    polynomial hash terms of each edge's kept pins, the reference's
+    parallel-edge hashes emulated in int64 (same values, so the same
+    merge groups, collisions included).  A term depends on a pin's rank
+    within its edge, so the window must hold whole edges; the sums of
+    several windows add up exactly."""
+    length = pv.shape[0]
+    live_rank = torch.cumsum(keep.to(torch.int64), 0) - 1
+    first_rank = torch.full((m_pad,), length, dtype=torch.int64,
+                            device=pv.device).scatter_reduce(
+        0, pe, torch.where(keep, live_rank, length), "amin")
     pos = (live_rank - first_rank[pe]) & _M32
     pu = pv
     a1 = _mul32((pu + 0x9E3779B9) & _M32, (pos * 2 + 1) & _M32)
     a2 = _mul32(pu ^ 0x85EBCA6B, (pos + 0xC2B2AE35) & _M32)
     m1 = _mul32(a1, a1 >> 15)
     m2 = a2 ^ ((a2 << 7) & _M32)
-    live_u = keep_pin.to(torch.int64)
-    h1 = torch.zeros(m_pad, dtype=torch.int64, device=dev).index_add_(
-        0, pe, m1 * live_u) & _M32
-    h2 = torch.zeros(m_pad, dtype=torch.int64, device=dev).index_add_(
-        0, pe, m2 * live_u) & _M32
-    h1 = h1 ^ _mul32(sizes, 0x27D4EB2F)
-    h2 = h2 ^ sizes
+    live_u = keep.to(torch.int64)
+    h1 = torch.zeros(m_pad, dtype=torch.int64, device=pv.device).index_add_(
+        0, pe, m1 * live_u)
+    h2 = torch.zeros(m_pad, dtype=torch.int64, device=pv.device).index_add_(
+        0, pe, m2 * live_u)
+    return h1, h2
+
+
+def _merge_edges(hga: HypergraphArrays, sizes, edge_alive, h1, h2) -> dict:
+    """The edge half of a contraction, on the [m_pad] sums: parallel-edge
+    groups from the hashes ``h1``/``h2`` (``_edge_hash_partials``),
+    weights merged onto the lowest edge id of a group, edges renumbered
+    densely.  Returns the map and the coarse edge leaves."""
+    from repro_torch.kernels import ops
+    m_pad = hga.m_pad
+    dev = hga.device
+    ghost_e = m_pad - 1
+    arange_m = torch.arange(m_pad, device=dev)
+    h1 = (h1 & _M32) ^ _mul32(sizes, 0x27D4EB2F)
+    h2 = (h2 & _M32) ^ sizes
     # dead edges must not group with anything (nor with each other)
     h1 = torch.where(edge_alive, h1, _M32)
     h2 = torch.where(edge_alive, h2, arange_m)
@@ -607,31 +662,40 @@ def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new,
     grp_of = torch.empty_like(grp).scatter_(0, eo, grp)
     keep_edge = edge_alive & (arange_m == rep[grp_of])
     merged_w = torch.where(keep_edge, gw[grp_of], 0.0)
-
-    # drop pins of merged-away edges, renumber kept edges densely
-    pin_ok = keep_edge[pe] & (pe != ghost_e)
-    pv = torch.where(pin_ok, pv, ghost_v)
-    pe = torch.where(pin_ok, pe, ghost_e)
     new_eid = torch.cumsum(keep_edge.to(torch.int64), 0) - 1
-    m_new = keep_edge.sum()
-    pe = torch.where(pe != ghost_e, new_eid[pe], ghost_e)
     tgt = torch.where(keep_edge, new_eid, ghost_e)
     new_ew = torch.zeros(m_pad, dtype=torch.float32, device=dev).index_add_(
         0, tgt, merged_w)
     new_es = torch.zeros(m_pad, dtype=torch.int64, device=dev).index_add_(
         0, tgt, torch.where(keep_edge, sizes, 0))
+    return dict(keep_edge=keep_edge, new_eid=new_eid, m_new=keep_edge.sum(),
+                tgt=tgt, new_ew=new_ew, new_es=new_es, eo=eo, grp=grp,
+                grp_of=grp_of, alive_s=alive_s)
 
-    # compact ghosts to the tail (live pins stay (edge, vertex) sorted,
-    # so the next round's stride pairing sees contiguous edges)
-    live_now = pe != ghost_e
-    pv, pe = _compact_ghosts(live_now, [pv, pe], [ghost_v, ghost_e])
+
+def _relabel_pins(pv, pe, em: dict, ghost_v: int, ghost_e: int):
+    """Drop the pins of merged-away edges and renumber the kept edges'
+    pins densely (``em`` from ``_merge_edges``, on the pins' device)."""
+    pin_ok = em["keep_edge"][pe] & (pe != ghost_e)
+    pv = torch.where(pin_ok, pv, ghost_v)
+    pe = torch.where(pin_ok, pe, ghost_e)
+    return pv, torch.where(pe != ghost_e, em["new_eid"][pe], ghost_e)
+
+
+def _contracted(hga: HypergraphArrays, new_vw, em: dict, pv, pe, n_new,
+                p_new, ew_pop: Optional[torch.Tensor]):
+    """The coarse level from its leaves (``n``/``m`` and ``p_new`` read
+    back together in one transfer), with ``ew_pop``'s rows carried
+    through the edge map when given: ``contract_arrays``' return."""
+    from repro_torch.kernels import ops
+    dev = hga.device
     n_new_t = torch.as_tensor(n_new, device=dev).to(torch.int64).reshape(())
-    n_h, m_h, p_h = torch.stack([n_new_t, m_new, live_now.sum()]).tolist()
-
+    n_h, m_h, p_h = torch.stack([n_new_t, em["m_new"],
+                                 torch.as_tensor(p_new, device=dev)]).tolist()
     coarse = HypergraphArrays(
         pin_vertex=pv.to(torch.int32), pin_edge=pe.to(torch.int32),
-        vertex_weights=new_vw, edge_weights=new_ew,
-        edge_sizes=new_es.to(torch.int32),
+        vertex_weights=new_vw, edge_weights=em["new_ew"],
+        edge_sizes=em["new_es"].to(torch.int32),
         n=n_h, m=m_h, incident=None,
         real_edge_weights=hga.real_edge_weights,
         real_vertex_weights=hga.real_vertex_weights,
@@ -640,19 +704,20 @@ def contract_arrays(hga: HypergraphArrays, cid: torch.Tensor, n_new,
         return coarse, p_h
     # per-member rows ride the structural edge map: same parallel-edge
     # groups, survivors and dense renumbering
-    alpha = ew_pop.shape[0]
-    rows = torch.where(alive_s[None], ew_pop[:, eo], 0.0)
+    alpha, m_pad = ew_pop.shape[0], hga.m_pad
+    rows = torch.where(em["alive_s"][None], ew_pop[:, em["eo"]], 0.0)
     # ``grp`` ascends, so the group sums are a sorted-segment sum: the
     # rating kernel adds each group in a fixed order, where ``index_add_``
     # would add the real-valued rows with atomics on the card (its plain
     # version on the CPU adds in ``index_add_``'s order)
     gw_r = ops.rating_segment_sum_batch(rows.contiguous(),
-                                        grp.to(torch.int32), m_pad)
-    merged_r = torch.where(keep_edge[None], gw_r[:, grp_of], 0.0)
+                                        em["grp"].to(torch.int32), m_pad)
+    merged_r = torch.where(em["keep_edge"][None], gw_r[:, em["grp_of"]],
+                           0.0)
     # every kept edge receives one value and the ghost only zeros: exact
     # in any order
     ew_new = torch.zeros((alpha, m_pad), dtype=torch.float32,
-                         device=dev).index_add_(1, tgt, merged_r)
+                         device=dev).index_add_(1, em["tgt"], merged_r)
     return coarse, p_h, ew_new
 
 

@@ -24,7 +24,6 @@ them.
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 from typing import List, Optional
 
@@ -41,7 +40,6 @@ from . import instances as instances_mod
 from . import refine as refine_mod
 from .mutate import MUTATE_PATHS, mutate_population
 from .recombine import ring_recombination
-from .refine import _later_slice
 from .scheduler import (OperatorScheduler, POLICIES, REFINE_ARMS,
                         SCHED_PATHS, SchedulerTrace, resolve_sched)
 from .vcycle import vcycle
@@ -117,15 +115,6 @@ class ImpartResult:
     # gain-assembly path of every refined level, coarsest first
     # ("table"/"stream" = kernel, "segsum"/"compact" = no layout)
     gain_paths: List[str] = dataclasses.field(default_factory=list)
-
-
-def _check_slice(cfg: ImpartConfig) -> None:
-    """Refuse every option this slice of the port does not run: the
-    model axis (``pop_shard`` routes through ``core.popshard``)."""
-    model = (cfg.model_shard
-             or os.environ.get("REPRO_MODEL_SHARD", "").strip().lower())
-    if model == "mesh":
-        _later_slice(f"model_shard={model!r}", "the model axis, item 13c")
 
 
 def impart_partition(hg: Hypergraph, cfg: ImpartConfig,
@@ -223,7 +212,7 @@ def _instances_setup(hgs: List[Hypergraph], cfgs: List[ImpartConfig],
         hier = build_hierarchy(
             hg, cfg.k, seed=cfg.seed,
             contraction_limit_factor=cfg.contraction_limit_factor,
-            device=dev)
+            model_shard=cfg.model_shard, device=dev)
         num = hier.num_levels
         parts, cuts = initial_partition_population(
             hier.level_host(num - 1), cfg.k, cfg.eps,
@@ -317,8 +306,6 @@ def impart_partition_instances(hgs: List[Hypergraph],
     if len({(c.alpha, c.lp_iters, c.fm_node_limit) for c in cfgs}) > 1:
         raise ValueError("instance batching requires equal alpha / "
                          "lp_iters / fm_node_limit across configs")
-    for cfg in cfgs:
-        _check_slice(cfg)
     dev = resolve_device(device)
     modes = {resolve_sched(c.sched) for c in cfgs}
     if "bandit" in modes:

@@ -60,7 +60,6 @@ from . import refine as refine_mod
 from .coarsen import Hierarchy, Level
 from .hypergraph import (DeviceLevel, HierarchyArrays, Hypergraph, contract,
                          contract_arrays, is_real_valued)
-from .impart import _check_slice
 
 __all__ = [
     "IncrementalConfig", "IncrementalResult", "IncrementalState",
@@ -393,7 +392,6 @@ def incremental_partition(hg: Hypergraph, incumbent,
     ``cfg.reuse``/``REPRO_INCR_REUSE`` turn reuse off)."""
     t0 = time.perf_counter()
     dev = resolve_device(device)
-    _check_slice(cfg)
     inc0 = np.asarray(incumbent, np.int32)
     if inc0.shape[0] != hg.n:
         raise ValueError(f"incumbent has {inc0.shape[0]} entries for "

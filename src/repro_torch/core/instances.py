@@ -59,6 +59,13 @@ on the population route; ``chunk`` splits the instances in
 the stack on one device.  A shard's sub-stack is placed once per stack.
 Since every per-row sum has a fixed order whatever the rows beside it
 (``metrics.row_sums``), each instance keeps its solo bits on every route.
+
+The model axis (``model_shard``, DESIGN.md §15): on the ``mesh`` route
+with a real "model" axis dividing the stack's pin padding, each shard's
+sub-stack is also split into pin blocks over "model"
+(``popshard.model_blocks`` of its stacked leaves), and its rows' Phi,
+cuts, gains and FM pin counts add the blocks' partials
+(``_StackRows``'s ``pin_axis``), as on a single level.
 """
 from __future__ import annotations
 
@@ -207,9 +214,11 @@ class InstanceBatch:
                 real_vertex_weights=h.real_vertex_weights)
         return self._union
 
-    def rows(self, alpha: int) -> "_StackRows":
-        """The stack as ``alpha * I`` rows of one population."""
-        return _StackRows(self, alpha)
+    def rows(self, alpha: int, blocks=None) -> "_StackRows":
+        """The stack as ``alpha * I`` rows of one population; ``blocks``
+        (the model route) are the stack's pin blocks, each a stack whose
+        pin tables hold one row block of this one's."""
+        return _StackRows(self, alpha, blocks)
 
 
 class _StackRows:
@@ -218,11 +227,16 @@ class _StackRows:
     so ``refine``'s population tiers run the stack unchanged.  Pin-level
     work goes through the union, row-level work per row."""
 
-    def __init__(self, batch: InstanceBatch, alpha: int):
+    def __init__(self, batch: InstanceBatch, alpha: int, blocks=None):
         h = batch.hga
         self.batch, self.alpha = batch, alpha
         self.n_pad, self.m_pad = batch.n_pad, batch.m_pad
         self.union = batch.union()
+        # the model route: the pin blocks' unions, whose partials add up
+        # to the union's pin-level sums
+        self.blocks = blocks
+        self.pin_axis = (None if blocks is None
+                         else [b.union() for b in blocks])
         self.vertex_weights = h.vertex_weights.repeat(alpha, 1)  # [R, n_pad]
         self.edge_weights = h.edge_weights.repeat(alpha, 1)      # [R, m_pad]
         self.n = h.n.repeat(alpha)
@@ -246,9 +260,15 @@ class _StackRows:
         """[R, n, ...] rows as [alpha, I * n, ...] union rows (a view)."""
         return x.reshape((self.alpha, -1) + tuple(x.shape[2:]))
 
+    @property
+    def single_device(self) -> bool:
+        """Whether every pin block lives on the rows' device."""
+        return self.blocks is None or all(
+            b.device == self.batch.device for b in self.blocks)
+
     def phi(self, parts: torch.Tensor, k: int) -> torch.Tensor:
         phi = metrics.pins_in_block_population(
-            self.union, self._union_view(parts), k)
+            self.union, self._union_view(parts), k, self.pin_axis)
         return phi.reshape(parts.shape[0], self.m_pad, k)
 
     def block_weights(self, parts: torch.Tensor, k: int) -> torch.Tensor:
@@ -269,24 +289,32 @@ class _StackRows:
         (``ops.gain_path`` on the union picks the path)."""
         g = metrics._gain_matrix_population_impl(
             self.union, self._union_view(parts), k, assemble=assemble,
-            phi=None if phi is None else self._union_view(phi))
+            phi=None if phi is None else self._union_view(phi),
+            pin_axis=self.pin_axis)
         return g.reshape(parts.shape[0], self.n_pad, k)
 
     def prepare_fm(self) -> None:
-        """Each row's own pins, built before a CUDA graph captures FM."""
-        h = self.batch.hga
-        self._pins = (h.pin_vertex.repeat(self.alpha, 1),
-                      h.pin_edge.long().repeat(self.alpha, 1))
+        """Each row's own pins (of every pin block on the model route),
+        built before a CUDA graph captures FM."""
+        stacks = [self.batch] if self.blocks is None else self.blocks
+        self._pins = [(b.hga.pin_vertex.repeat(self.alpha, 1),
+                       b.hga.pin_edge.long().repeat(self.alpha, 1))
+                      for b in stacks]
         if self.union.real_edge_weights:
-            metrics.pins_by_vertex(self.union)
+            for u in ([self.union] if self.pin_axis is None
+                      else self.pin_axis):
+                metrics.pins_by_vertex(u)
 
     def pin_delta(self, v: torch.Tensor) -> torch.Tensor:
         """[R, m_pad] int32: the pins of vertex ``v[r]`` of row r's
         instance on each of its edges."""
-        pv, pe = self._pins
-        d = (pv == v[:, None]).to(torch.int32)                    # [R, P]
-        return torch.zeros((v.shape[0], self.m_pad), dtype=torch.int32,
-                           device=v.device).scatter_add_(1, pe, d)
+        out = []
+        for pv, pe in self._pins:
+            d = (pv == v.to(pv.device)[:, None]).to(torch.int32)  # [R, P]
+            out.append(torch.zeros((v.shape[0], self.m_pad),
+                                   dtype=torch.int32,
+                                   device=pv.device).scatter_add_(1, pe, d))
+        return metrics._model_psum(out, v.device)
 
 
 def stack_instances(hgas: Sequence[HypergraphArrays], ks: Sequence[int],
@@ -433,19 +461,35 @@ def _batch_to(batch: InstanceBatch, dev: torch.device) -> InstanceBatch:
         mig_budget=move(batch.mig_budget), _union=None, _shards={})
 
 
-def _shards_for(batch: InstanceBatch, path: str):
+def _model_active(batch: InstanceBatch, mesh,
+                  model_shard: Optional[str]) -> bool:
+    """Does this stacked dispatch split its pin tables over "model"?
+    (the ``model_shard``/``REPRO_MODEL_SHARD`` route and a real "model"
+    axis dividing the stack's pin padding, DESIGN.md §15)."""
+    return (popshard.resolve_model(model_shard) == "mesh"
+            and popshard.model_axis_active(int(batch.hga.pin_vertex.shape[-1]),
+                                           mesh))
+
+
+def _shards_for(batch: InstanceBatch, path: str,
+                model_shard: Optional[str] = None):
     """The shards of a routed dispatch, built once per (stack, route,
-    pool): ``(ids, keep, sub)`` per shard, ``ids`` its instances (a
-    mesh's pad entries mirror instance 0), ``keep`` which of them are
-    real, ``sub`` its sub-stack on its device.  None for the ``off``
-    route, or ``chunk`` over a pool of one device."""
+    pool, model route): ``(ids, keep, sub, blocks)`` per shard, ``ids``
+    its instances (a mesh's pad entries mirror instance 0), ``keep``
+    which of them are real, ``sub`` its sub-stack on its device,
+    ``blocks`` the sub-stack's pin blocks over "model" (None off the
+    model route).  None for the ``off`` route, or ``chunk`` over a pool
+    of one device."""
     if path == "off":
         return None
-    key = (path, popshard._pool_token(batch.device))
+    mesh = popshard.pop_mesh(batch.device) if path == "mesh" else None
+    model = mesh is not None and _model_active(batch, mesh, model_shard)
+    key = (path, popshard._pool_token(batch.device),
+           None if mesh is None else mesh.shape["model"], model)
     if key not in batch._shards:
         num = batch.n_instances
         if path == "mesh":
-            devs = popshard.pop_mesh(batch.device).pop_devices
+            devs = mesh.pop_devices
             ids = _pad_i(torch.arange(num), len(devs)).tolist()
             b = len(ids) // len(devs)
             blocks = [range(s * b, (s + 1) * b) for s in range(len(devs))]
@@ -458,10 +502,17 @@ def _shards_for(batch: InstanceBatch, path: str):
             ids = list(range(num))
             bounds = _chunk_bounds(num, ndev)
             blocks = [range(bounds[d], bounds[d + 1]) for d in range(ndev)]
-        batch._shards[key] = [
-            ([ids[q] for q in blk], [q < num for q in blk],
-             _batch_to(_take_i(batch, [ids[q] for q in blk]), devs[s]))
-            for s, blk in enumerate(blocks)]
+        shards = []
+        for s, blk in enumerate(blocks):
+            sub = _batch_to(_take_i(batch, [ids[q] for q in blk]), devs[s])
+            pins = None
+            if model:
+                pins = [dataclasses.replace(sub, hga=h, _union=None,
+                                            _shards={})
+                        for h in popshard.model_blocks(sub.hga, mesh, s)]
+            shards.append(([ids[q] for q in blk], [q < num for q in blk],
+                           sub, pins))
+        batch._shards[key] = shards
     return batch._shards[key]
 
 
@@ -477,7 +528,7 @@ def _merge_rows(shards, outs, like: torch.Tensor, num: int) -> torch.Tensor:
     """The shards' rows written back into a copy of the stack rows
     ``like`` (mirror instances dropped)."""
     merged = like.clone().reshape((-1, num) + tuple(like.shape[1:]))
-    for (ids, keep, _), out in zip(shards, outs):
+    for (ids, keep, _, _), out in zip(shards, outs):
         out = out.to(like.device).reshape(
             (merged.shape[0], len(ids)) + tuple(like.shape[1:]))
         real = [q for q, ok in enumerate(keep) if ok]
@@ -497,8 +548,8 @@ def _dispatch_lp(batch: InstanceBatch, shards, rows, cuts, fracs, live,
             k_live=lv.k_live, incumbent=lv.incumbent,
             mig_budget=lv.mig_budget)
     work = []
-    for ids, _, sub in shards:
-        lv = sub.rows(rows.shape[0] // num)
+    for ids, _, sub, blocks in shards:
+        lv = sub.rows(rows.shape[0] // num, blocks)
         put = lambda x: _shard_rows(x, num, ids, sub.device)
         work.append(dict(lv=lv, parts=put(rows), cuts=put(cuts),
                          fracs=put(fracs), cap=lv.cap, live=put(live),
@@ -517,8 +568,8 @@ def _dispatch_fm(batch: InstanceBatch, shards, rows, live):
     returns the best prefixes and their cuts."""
     k, num = batch.k_pad, batch.n_instances
 
-    def run(sub, rows_s, live_s):
-        lv = sub.rows(rows_s.shape[0] // sub.n_instances)
+    def run(sub, rows_s, live_s, blocks=None):
+        lv = sub.rows(rows_s.shape[0] // sub.n_instances, blocks)
         with popshard.on_device(sub.device):
             return refine_mod._fm_pass_population_impl(
                 lv, rows_s, k, lv.cap, lv.fm_steps, k_live=lv.k_live,
@@ -527,8 +578,8 @@ def _dispatch_fm(batch: InstanceBatch, shards, rows, live):
     if shards is None:
         return run(batch, rows, live)
     outs = [run(sub, _shard_rows(rows, num, ids, sub.device),
-                _shard_rows(live, num, ids, sub.device))
-            for ids, _, sub in shards]
+                _shard_rows(live, num, ids, sub.device), blocks)
+            for ids, _, sub, blocks in shards]
     return (_merge_rows(shards, [o[0] for o in outs], rows, num),
             _merge_rows(shards, [o[1] for o in outs],
                         torch.zeros(rows.shape[0], device=rows.device),
@@ -545,8 +596,8 @@ def lp_refine_instances(batch: InstanceBatch, parts, max_iters: int = 24,
     whole group (ORed over the shards on the ``mesh`` and ``chunk``
     routes).  Returns (parts [I, A, n_pad] int32 on the batch's device,
     cuts [I, A] float64), each instance bit-equal to its solo run."""
-    path = refine_mod._check_slice_options(shard, model_shard, batch.device)
-    shards = _shards_for(batch, path)
+    path = refine_mod._routes(shard, model_shard, batch.device)
+    shards = _shards_for(batch, path, model_shard)
     dev, k = batch.device, batch.k_pad
     rows = _to_rows(batch, parts)
     num_rows = rows.shape[0]
@@ -586,8 +637,8 @@ def fm_refine_instances(batch: InstanceBatch, parts,
     runs all rows, converged rows frozen through ``live``, each row
     capped at its instance's solo step budget.  The pass is as long as
     the largest budget; on the card it replays one CUDA graph."""
-    path = refine_mod._check_slice_options(shard, model_shard, batch.device)
-    shards = _shards_for(batch, path)
+    path = refine_mod._routes(shard, model_shard, batch.device)
+    shards = _shards_for(batch, path, model_shard)
     dev, k = batch.device, batch.k_pad
     rows = _to_rows(batch, parts)
     num_rows = rows.shape[0]
@@ -695,7 +746,7 @@ def refine_grouped(entries, grid: Optional[Sequence[int]] = None,
     the partition service share.
     """
     dev = resolve_device(device)
-    refine_mod._check_slice_options(shard, model_shard, dev)
+    refine_mod._routes(shard, model_shard, dev)
     for e in entries:
         if e[0].device.type != dev.type:
             raise ValueError(f"an entry's level lives on {e[0].device}, "

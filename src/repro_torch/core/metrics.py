@@ -49,6 +49,15 @@ from repro_torch.kernels.common import RATING_TILE
 from .hypergraph import HypergraphArrays
 
 
+def _model_psum(partials, home: torch.device) -> torch.Tensor:
+    """The model blocks' partial sums added in block order on ``home``
+    (the reference's ``psum`` over "model")."""
+    acc = partials[0].to(home)
+    for x in partials[1:]:
+        acc = acc + x.to(home)
+    return acc
+
+
 def _tile_multiple(n: int) -> int:
     return -(-n // RATING_TILE) * RATING_TILE
 
@@ -156,9 +165,14 @@ def block_weight_sums(parts: torch.Tensor, vertex_weights: torch.Tensor,
 
 
 def pins_in_block_population(hga: HypergraphArrays, parts: torch.Tensor,
-                             k: int) -> torch.Tensor:
+                             k: int, pin_axis=None) -> torch.Tensor:
     """Phi [alpha, m_pad, k] int32: for each member and edge, how many of
-    the edge's pins lie in block j."""
+    the edge's pins lie in block j (over the pin blocks of ``pin_axis``,
+    their int32 partials added)."""
+    if pin_axis is not None:
+        return _model_psum(
+            [pins_in_block_population(b, parts.to(b.device), k)
+             for b in pin_axis], parts.device)
     alpha = parts.shape[0]
     pin_parts = parts[:, hga.pin_vertex.long()].long()            # [a, P]
     base = torch.arange(alpha, device=parts.device)[:, None] * (hga.m_pad * k)
@@ -171,46 +185,60 @@ def pins_in_block_population(hga: HypergraphArrays, parts: torch.Tensor,
 
 
 def pins_in_block(hga: HypergraphArrays, part: torch.Tensor,
-                  k: int) -> torch.Tensor:
+                  k: int, pin_axis=None) -> torch.Tensor:
     """Phi [m_pad, k] int32 of one partition."""
-    return pins_in_block_population(hga, part[None], k)[0]
+    return pins_in_block_population(hga, part[None], k, pin_axis)[0]
 
 
 def connectivity(hga: HypergraphArrays, part: torch.Tensor,
-                 k: int) -> torch.Tensor:
+                 k: int, pin_axis=None) -> torch.Tensor:
     """lambda(e) [m_pad] int32: number of distinct blocks spanned."""
-    return (pins_in_block(hga, part, k) > 0).sum(-1).to(torch.int32)
-
-
-def connectivity_population(hga: HypergraphArrays, parts: torch.Tensor,
-                            k: int) -> torch.Tensor:
-    """lambda [alpha, m_pad] int32 of every member."""
-    return (pins_in_block_population(hga, parts, k) > 0).sum(-1).to(
+    return (pins_in_block(hga, part, k, pin_axis) > 0).sum(-1).to(
         torch.int32)
 
 
-def cutsize(hga: HypergraphArrays, part: torch.Tensor, k: int) -> torch.Tensor:
+def connectivity_population(hga: HypergraphArrays, parts: torch.Tensor,
+                            k: int, pin_axis=None) -> torch.Tensor:
+    """lambda [alpha, m_pad] int32 of every member."""
+    return (pins_in_block_population(hga, parts, k, pin_axis) > 0).sum(
+        -1).to(torch.int32)
+
+
+def cutsize(hga: HypergraphArrays, part: torch.Tensor, k: int,
+            pin_axis=None) -> torch.Tensor:
     """Sum of weights of edges spanning >= 2 blocks (the paper's
     objective), f32 scalar."""
-    return cutsize_population(hga, part[None], k)[0]
+    return cutsize_population(hga, part[None], k, pin_axis)[0]
+
+
+def cuts_from_phi(hga: HypergraphArrays, phi: torch.Tensor,
+                  ew_pop: torch.Tensor | None = None) -> torch.Tensor:
+    """[alpha] f32 cuts from Phi [alpha, m_pad, k]: on the level's edge
+    weights (in a fixed order when they are real-valued, ``row_sums``),
+    or on each member's own row of ``ew_pop`` (always fixed order)."""
+    lam = (phi > 0).sum(-1)
+    if ew_pop is None:
+        return row_sums(torch.where(lam > 1, hga.edge_weights[None], 0.0),
+                        hga.real_edge_weights, hga.m)
+    return row_sums(torch.where(lam > 1, ew_pop, 0.0), True, hga.m)
 
 
 def cutsize_population(hga: HypergraphArrays, parts: torch.Tensor,
-                       k: int) -> torch.Tensor:
+                       k: int, pin_axis=None) -> torch.Tensor:
     """[alpha] f32 cut of every member (in a fixed order on real-valued
     edge weights, ``row_sums``)."""
-    lam = (pins_in_block_population(hga, parts, k) > 0).sum(-1)
-    return row_sums(torch.where(lam > 1, hga.edge_weights[None], 0.0),
-                    hga.real_edge_weights, hga.m)
+    return cuts_from_phi(hga, pins_in_block_population(hga, parts, k,
+                                                       pin_axis))
 
 
 def cutsize_population_weighted(hga: HypergraphArrays, parts: torch.Tensor,
-                                ew_pop: torch.Tensor, k: int) -> torch.Tensor:
+                                ew_pop: torch.Tensor, k: int,
+                                pin_axis=None) -> torch.Tensor:
     """[alpha] f32 cuts, each member measured with its own edge-weight
     row ``ew_pop[alpha, m_pad]`` over the shared structure (the mutation
     cohort's objective)."""
-    lam = connectivity_population(hga, parts, k)
-    return row_sums(torch.where(lam > 1, ew_pop, 0.0), True, hga.m)
+    return cuts_from_phi(hga, pins_in_block_population(hga, parts, k,
+                                                       pin_axis), ew_pop)
 
 
 def km1(hga: HypergraphArrays, part: torch.Tensor, k: int) -> torch.Tensor:
@@ -325,6 +353,16 @@ def _gain_segsum(hga: HypergraphArrays, phi: torch.Tensor,
                  ew_pop: torch.Tensor | None = None) -> torch.Tensor:
     """Per-pin gather + segment-sum assembly from Phi [alpha, m_pad, k]:
     materialises an [alpha, P, k] intermediate."""
+    g, l = _gain_segsum_parts(hga, phi, ew_pop)
+    return g - l[..., None]
+
+
+def _gain_segsum_parts(hga: HypergraphArrays, phi: torch.Tensor,
+                       ew_pop: torch.Tensor | None = None):
+    """The two segment sums of ``_gain_segsum`` over ``hga``'s pins: the
+    becomes-internal sums [alpha, n_pad, k] and the was-internal sums
+    [alpha, n_pad] (kept apart, so the model route adds each over its
+    pin blocks before the difference, as the reference ``psum``s them)."""
     becomes_internal, was_internal = _edge_gain_terms(hga, phi, ew_pop)
     pe, pv = hga.pin_edge.long(), hga.pin_vertex.long()
     alpha, _, k = phi.shape
@@ -341,17 +379,24 @@ def _gain_segsum(hga: HypergraphArrays, phi: torch.Tensor,
         torch.index_select(was_internal, 1, pe_v, out=rows[alpha * k:])
         sums = _vertex_sums(hga, rows)
         g = sums[: alpha * k].reshape(alpha, k, hga.n_pad).transpose(1, 2)
-        return g - sums[alpha * k:, :, None]
+        return g, sums[alpha * k:]
     g = torch.zeros((alpha, hga.n_pad, k), dtype=torch.float32,
                     device=phi.device).index_add_(1, pv,
                                                   becomes_internal[:, pe])
     l = torch.zeros((alpha, hga.n_pad), dtype=torch.float32,
                     device=phi.device).index_add_(1, pv, was_internal[:, pe])
-    return g - l[..., None]
+    return g, l
 
 
 def _gain_compact(hga: HypergraphArrays, phi: torch.Tensor, k: int,
                   ew_pop: torch.Tensor | None = None) -> torch.Tensor:
+    """The compact assembly (``_gain_compact_parts``) as one table."""
+    g, l = _gain_compact_parts(hga, phi, k, ew_pop)
+    return g - l[..., None]
+
+
+def _gain_compact_parts(hga: HypergraphArrays, phi: torch.Tensor, k: int,
+                        ew_pop: torch.Tensor | None = None):
     """Sparse assembly for large k, O(P) instead of O(P * k).
 
     ``becomes_internal`` has at most TWO nonzero columns per edge (an
@@ -409,8 +454,7 @@ def _gain_compact(hga: HypergraphArrays, phi: torch.Tensor, k: int,
         g.index_add_(0, s2, wp)
         l = torch.zeros((alpha, hga.n_pad), dtype=torch.float32,
                         device=dev).index_add_(1, pv, was_internal[:, pe])
-    g = g.reshape(alpha, hga.n_pad, k + 1)[..., :k]
-    return g - l[..., None]
+    return g.reshape(alpha, hga.n_pad, k + 1)[..., :k], l
 
 
 def _resolve_gain_path(hga: HypergraphArrays, k: int, assemble: str) -> str:
@@ -425,8 +469,8 @@ def _resolve_gain_path(hga: HypergraphArrays, k: int, assemble: str) -> str:
 def _gain_matrix_population_impl(hga: HypergraphArrays, parts: torch.Tensor,
                                  k: int, assemble: str = "auto",
                                  phi: torch.Tensor | None = None,
-                                 ew_pop: torch.Tensor | None = None
-                                 ) -> torch.Tensor:
+                                 ew_pop: torch.Tensor | None = None,
+                                 pin_axis=None) -> torch.Tensor:
     """Population gain matrices [alpha, n_pad, k]:
 
     gain[a, v, j] = reduction in cut if v moves from parts[a, v] to j
@@ -441,11 +485,24 @@ def _gain_matrix_population_impl(hga: HypergraphArrays, parts: torch.Tensor,
     over the shared structure (the mutation cohort): the weights enter
     only the per-edge tables, so the kernels get per-member tables and
     the one shared incidence layout.
+
+    ``pin_axis`` (the model route): the pin blocks' two segment sums are
+    added over the blocks apart, then differenced; the kernel paths are
+    never taken there (the blocks carry no incidence layout).
     """
     if phi is None:
-        phi = pins_in_block_population(hga, parts, k)
+        phi = pins_in_block_population(hga, parts, k, pin_axis)
     path = _resolve_gain_path(hga, k, assemble)
-    if path == "compact":
+    if pin_axis is not None:
+        parts_fn = (_gain_compact_parts if path == "compact"
+                    else lambda h, ph, kk, ew: _gain_segsum_parts(h, ph, ew))
+        outs = [parts_fn(b, phi.to(b.device), k,
+                         None if ew_pop is None else ew_pop.to(b.device))
+                for b in pin_axis]
+        g = (_model_psum([o[0] for o in outs], parts.device)
+             - _model_psum([o[1] for o in outs],
+                                   parts.device)[..., None])
+    elif path == "compact":
         g = _gain_compact(hga, phi, k, ew_pop)
     elif path == "segsum" or hga.incident is None:
         g = _gain_segsum(hga, phi, ew_pop)

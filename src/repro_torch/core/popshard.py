@@ -21,7 +21,19 @@ contiguous row blocks over "pop"; ``replicated``: one copy a device)
 puts a tensor on the shards, each shard runs the single-device code on
 its rows, and the one cross-shard value of the LP tier, the "any lane
 improved" flag the reference ``psum``s, is ORed on the host from the
-shards' flags in one read.  The "model" axis has size 1 in this slice.
+shards' flags in one read.
+
+The "model" axis (``REPRO_POP_MESH_MODEL``, DESIGN.md §15) splits each
+pop shard's pin tables into ``nmodel`` contiguous row blocks, block q on
+``devices[p][q]``, with every vertex- and edge-indexed leaf replicated
+(``hga_model_specs``, ``model_put_cached``).  Each block runs the
+single-device segment sums on its own pins, and the partials are added
+in block order on the pop shard's ``q = 0`` device (``metrics``'
+``_model_psum``), the counterpart of the reference's ``psum`` over
+"model".  Integer partials (Phi, lambda, integer-valued gains) are exact
+in any order, so the model route gives the bits of the replicated one.
+``REPRO_MODEL_SHARD`` (or an explicit ``model_shard=``) turns the route
+on.
 """
 from __future__ import annotations
 
@@ -40,6 +52,13 @@ import torch
 from repro_torch.env import warn_env_once
 
 POP_SHARD_PATHS = ("mesh", "chunk", "off")
+
+#: Structure-sharding paths over the mesh's "model" axis (DESIGN.md §15):
+#: "mesh" splits the pin tables into row blocks over "model" and adds the
+#: pin-indexed segment sums' partials; "off" (the default) keeps the
+#: structure replicated, the single-device engine every model-sharded
+#: dispatch must reproduce bit for bit.
+MODEL_SHARD_PATHS = ("mesh", "off")
 
 # ``None`` = every device of the type; an integer caps the pool to the
 # first N devices
@@ -126,6 +145,46 @@ def resolve(shard: Optional[str],
     return s
 
 
+def model_axis_size() -> int:
+    """Size of the "model" mesh axis (``REPRO_POP_MESH_MODEL``, default
+    1; a value that is not a positive integer is warned once and taken
+    as 1).  A size that does not divide the pool falls back to 1 in
+    ``pop_mesh``."""
+    raw = os.environ.get("REPRO_POP_MESH_MODEL", "1")
+    try:
+        s = int(raw)
+    except ValueError:
+        warn_env_once("REPRO_POP_MESH_MODEL", raw, "a model axis of 1")
+        return 1
+    return s if s >= 1 else 1
+
+
+def model_shard_path() -> str:
+    """Structure-sharding routing: ``REPRO_MODEL_SHARD=mesh|off`` forces a
+    path; ``auto`` (unset) is ``off``: the model route only pays when the
+    pin tables outgrow one device."""
+    env = os.environ.get("REPRO_MODEL_SHARD", "auto").strip().lower()
+    if env in MODEL_SHARD_PATHS:
+        return env
+    if env not in ("", "auto"):
+        warn_env_once("REPRO_MODEL_SHARD", env, "off (auto)")
+    return "off"
+
+
+def resolve_model(shard: Optional[str]) -> str:
+    """Validate an explicit ``model_shard=`` override (None/"auto" defers
+    to ``REPRO_MODEL_SHARD``)."""
+    if shard is None:
+        return model_shard_path()
+    s = shard.strip().lower()
+    if s == "auto":
+        return model_shard_path()
+    if s not in MODEL_SHARD_PATHS:
+        raise ValueError(f"unknown model shard path {shard!r}; "
+                         f"expected one of {MODEL_SHARD_PATHS} (or 'auto')")
+    return s
+
+
 # --------------------------------------------------------------------------
 # The mesh and its placements
 # --------------------------------------------------------------------------
@@ -156,15 +215,35 @@ def _pool_token(device: str | torch.device = "cuda") -> tuple:
 
 
 def pop_mesh(device: str | torch.device = "cuda") -> PopMesh:
-    """The ("pop", "model") mesh of ``device``'s pool, cached per pool
-    token; "model" is 1, so every device of the pool holds a slice of
-    the population."""
-    key = (_pool_token(device), 1)
+    """The ("pop", "model") mesh of ``device``'s pool, cached per (pool
+    token, model size): "pop" spans ``len(pool) // model``, the pool's
+    devices in row-major order.  A model size that does not divide the
+    pool falls back to 1 (and reuses that entry), so after a device loss
+    or a mid-run ``REPRO_POP_MESH_MODEL`` change every consumer gets the
+    mesh of the pool it now has."""
+    devs = local_devices(device)
+    nmodel = model_axis_size()
+    if len(devs) % nmodel != 0:
+        nmodel = 1
+    key = (_pool_token(device), nmodel)
     mesh = _MESH_CACHE.get(key)
     if mesh is None:
-        mesh = PopMesh(tuple((d,) for d in local_devices(device)))
+        mesh = PopMesh(tuple(tuple(devs[p * nmodel:(p + 1) * nmodel])
+                             for p in range(len(devs) // nmodel)))
         _MESH_CACHE[key] = mesh
     return mesh
+
+
+def model_axis_active(p_pad: int, mesh=None,
+                      device: str | torch.device = "cuda") -> bool:
+    """Should this dispatch split its pin tables over "model"?  True iff
+    the mesh's (``pop_mesh(device)`` when None) "model" axis is real (>1)
+    and divides ``p_pad``; the caller has resolved the route to
+    ``mesh``."""
+    if mesh is None:
+        mesh = pop_mesh(device)
+    nmodel = mesh.shape["model"]
+    return nmodel > 1 and p_pad % nmodel == 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,8 +267,28 @@ class PopSharding:
 
 @dataclasses.dataclass(frozen=True)
 class Replicated:
-    """One copy a device (structure, incidence, caps, scalars)."""
+    """One copy a "pop" shard (structure, incidence, caps, scalars)."""
     mesh: PopMesh
+
+    def put(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """A copy of ``x`` on every "pop" shard's device."""
+        return [x.to(d) for d in self.mesh.pop_devices]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelRows:
+    """The last axis in ``nmodel`` contiguous blocks over "model" (the
+    pin tables of the model route): block q of pop shard p on
+    ``devices[p][q]``."""
+    mesh: PopMesh
+
+    def put(self, x: torch.Tensor, p: int) -> List[torch.Tensor]:
+        """Pop shard ``p``'s blocks of ``x`` (its last axis a multiple
+        of the "model" size), each on its device."""
+        devs = self.mesh.devices[p]
+        b = x.shape[-1] // len(devs)
+        return [x[..., q * b:(q + 1) * b].to(d).contiguous()
+                for q, d in enumerate(devs)]
 
 
 def pop_sharding(mesh: PopMesh) -> PopSharding:
@@ -291,6 +390,64 @@ def device_put_cached(obj, target):
     # release the device tensors as soon as the level dies, not when 64
     # newer placements eventually evict the entry
     weakref.finalize(obj, _PLACEMENT_CACHE.pop, key, None)
+    while len(_PLACEMENT_CACHE) > _PLACEMENT_CACHE_MAX:
+        _PLACEMENT_CACHE.popitem(last=False)
+    return placed
+
+
+def hga_model_specs(hga, pin_spec, rep_spec):
+    """A placement tree matching ``hga``: the pin tables on ``pin_spec``
+    and every other leaf on ``rep_spec``.  The incidence layout is
+    dropped (None): it indexes global pin positions, meaningless on a
+    block of the pin tables, so gain assembly takes the segment-sum
+    paths, whose partials add up to the replicated result."""
+    return dataclasses.replace(hga, pin_vertex=pin_spec, pin_edge=pin_spec,
+                               vertex_weights=rep_spec, edge_weights=rep_spec,
+                               edge_sizes=rep_spec, n=rep_spec, m=rep_spec,
+                               incident=None, pin_sort=None,
+                               pin_sort_edge=None)
+
+
+def model_blocks(hga, mesh: PopMesh, p: int) -> list:
+    """Pop shard ``p``'s blocks of ``hga`` under ``hga_model_specs``:
+    ``nmodel`` levels (or stacks), block q holding the q-th row block of
+    the pin tables (ghost pins keep pointing at the ghost edge) and the
+    replicated leaves, on ``devices[p][q]``, each with its own pin-sort
+    cache.  Only the replicated leaves are copied whole to each block's
+    device; the pin tables arrive as their blocks alone, and the
+    pin-indexed caches (incidence layout, pin sorts) are left behind."""
+    specs = hga_model_specs(hga, ModelRows(mesh), Replicated(mesh))
+    pins = {f: specs.pin_vertex.put(getattr(hga, f), p)
+            for f in ("pin_vertex", "pin_edge")}
+    pinned = ("pin_vertex", "pin_edge", "incident", "pin_sort",
+              "pin_sort_edge")
+    out = []
+    for q, dev in enumerate(mesh.devices[p]):
+        fields = {f.name: getattr(hga, f.name)
+                  for f in dataclasses.fields(hga) if f.name not in pinned}
+        for name, val in fields.items():
+            if torch.is_tensor(val):
+                fields[name] = val.to(dev)
+        fields.update(pin_vertex=pins["pin_vertex"][q],
+                      pin_edge=pins["pin_edge"][q], incident=None,
+                      pin_sort=None, pin_sort_edge=None)
+        out.append(type(hga)(**fields))
+    return out
+
+
+def model_put_cached(hga, mesh: PopMesh) -> list:
+    """``hga`` in the model-shard layout over ``mesh``: for every pop
+    shard p, its ``nmodel`` blocks (``model_blocks``), memoised like
+    ``device_put_cached`` so a level's structure ships once per mesh."""
+    key = (placement_token(hga), "model-shard", mesh)
+    hit = _PLACEMENT_CACHE.get(key)
+    if hit is not None:
+        _PLACEMENT_CACHE.move_to_end(key)
+        return hit
+    placed = [model_blocks(hga, mesh, p)
+              for p in range(mesh.shape["pop"])]
+    _PLACEMENT_CACHE[key] = placed
+    weakref.finalize(hga, _PLACEMENT_CACHE.pop, key, None)
     while len(_PLACEMENT_CACHE) > _PLACEMENT_CACHE_MAX:
         _PLACEMENT_CACHE.popitem(last=False)
     return placed

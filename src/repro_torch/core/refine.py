@@ -37,9 +37,19 @@ are done.  ``chunk`` splits the FM batch over the pool's devices and
 keeps LP on one device.  Every per-row sum of real-valued weights has a
 fixed order whatever the rows that share the launch
 (``metrics.row_sums``, ``block_weight_sums``, ``prefix_sums``), so each
-member gets the same bits on every route.  The model axis
-(``model_shard``) belongs to a later slice and raises
-``NotImplementedError``.
+member gets the same bits on every route.
+
+``model_shard`` (None = ``REPRO_MODEL_SHARD``, DESIGN.md §15): on the
+``mesh`` route with a real "model" axis dividing the pin padding, each
+pop shard's pin tables are split into row blocks over "model"
+(``popshard.model_put_cached``; the incidence layout dropped, so gain
+assembly takes the segment-sum paths) and every pin-level sum of both
+tiers (Phi, the cut, the gains, FM's per-move pin counts) is added over
+the blocks (``metrics``' ``pin_axis``).  The row-level work (proposals,
+acceptance, FM's move choice) runs on the replicated sums, so on
+integer weights the trajectories are the replicated ones bit for bit;
+the device-memory budget checks the pin tables divided by the model
+size.
 
 The scalar entry points (``lp_round``, ``lp_refine``, ``fm_refine``,
 ``refine``) refine one partition; the baselines and recombination's
@@ -69,19 +79,12 @@ NEG = -1e30
 FM_FLAG_EVERY = 32
 
 
-def _later_slice(what: str, slice_name: str):
-    raise NotImplementedError(
-        f"{what} belongs to a later slice of the port ({slice_name})")
-
-
-def _check_slice_options(shard=None, model_shard=None,
-                         device: str | torch.device = "cuda") -> str:
+def _routes(shard=None, model_shard=None,
+            device: str | torch.device = "cuda") -> str:
     """The population route ``shard`` resolves to over the pool of
-    ``device``'s type (``popshard.resolve``); a ``model_shard`` other
-    than off raises."""
-    if model_shard not in (None, "off", "auto"):
-        _later_slice(f"model_shard={model_shard!r}",
-                     "the model axis, item 13c")
+    ``device``'s type (``popshard.resolve``), after validating
+    ``model_shard`` (``popshard.resolve_model``)."""
+    popshard.resolve_model(model_shard)
     return popshard.resolve(shard, device)
 
 
@@ -215,14 +218,27 @@ class _Level:
     tiers below run a stack through the same code."""
 
     def __init__(self, hga: HypergraphArrays, ew_pop=None,
-                 gain_weights=None):
+                 gain_weights=None, pin_axis=None):
         self.hga, self.ew_pop = hga, ew_pop
         self.gain_hga = _with_weights(hga, gain_weights)
         self.n_pad, self.m_pad = hga.n_pad, hga.m_pad
         self.vertex_weights = hga.vertex_weights
         self.real_vertex_weights = hga.real_vertex_weights
         self.n_lens = hga.n  # each row's true vertex count
+        # the model route: the level's pin blocks (``hga`` is then the
+        # first, whose replicated leaves serve the row-level work)
+        self.pin_axis = pin_axis
+        self.gain_axis = None if pin_axis is None else [
+            _with_weights(b, None if gain_weights is None
+                          else gain_weights.to(b.device)) for b in pin_axis]
         self._pins = None
+
+    @property
+    def single_device(self) -> bool:
+        """Whether every pin block lives on the rows' device (a CUDA
+        graph can capture the FM step)."""
+        return self.pin_axis is None or all(
+            b.device == self.hga.device for b in self.pin_axis)
 
     @property
     def valid(self) -> torch.Tensor:
@@ -232,43 +248,54 @@ class _Level:
                 & (h.vertex_weights > 0))
 
     def phi(self, parts: torch.Tensor, k: int) -> torch.Tensor:
-        return metrics.pins_in_block_population(self.hga, parts, k)
+        return metrics.pins_in_block_population(self.hga, parts, k,
+                                                self.pin_axis)
 
     def block_weights(self, parts: torch.Tensor, k: int) -> torch.Tensor:
         return metrics.block_weights_population(self.hga, parts, k)
 
     def cuts(self, parts: torch.Tensor, k: int) -> torch.Tensor:
-        return _member_cuts(self.hga, parts, self.ew_pop, k)
+        return _member_cuts(self.hga, parts, self.ew_pop, k, self.pin_axis)
 
     def gains(self, parts: torch.Tensor, k: int, assemble: str = "auto",
               phi: torch.Tensor | None = None) -> torch.Tensor:
         return metrics._gain_matrix_population_impl(
             self.gain_hga, parts, k, assemble=assemble, phi=phi,
-            ew_pop=self.ew_pop)
+            ew_pop=self.ew_pop, pin_axis=self.gain_axis)
 
     def prepare_fm(self) -> None:
         """Build what the FM step reads, before a CUDA graph captures
-        it."""
-        h = self.hga
-        self._pins = (h.pin_vertex.long(), h.pin_edge.long())
-        if self.ew_pop is not None or h.real_edge_weights:
+        it: the pins of the level (or of each of its pin blocks)."""
+        blocks = [self.hga] if self.pin_axis is None else self.pin_axis
+        self._pins = [(h.pin_vertex.long(), h.pin_edge.long())
+                      for h in blocks]
+        if self.ew_pop is not None or self.hga.real_edge_weights:
             # the fixed-order gain sums of real-valued weights read the
-            # level's pins sorted by vertex
-            metrics.pins_by_vertex(h)
+            # pins sorted by vertex
+            for h in blocks:
+                metrics.pins_by_vertex(h)
 
     def pin_delta(self, v: torch.Tensor) -> torch.Tensor:
-        """[R, m_pad] int32: the pins of vertex ``v[r]`` on each edge."""
-        pv, pe = self._pins
-        d = (pv[None, :] == v[:, None]).to(torch.int32)          # [R, P]
-        return torch.zeros((v.shape[0], self.m_pad), dtype=torch.int32,
-                           device=v.device).index_add_(1, pe, d)
+        """[R, m_pad] int32: the pins of vertex ``v[r]`` on each edge
+        (added over the pin blocks on the model route)."""
+        out = []
+        for pv, pe in self._pins:
+            vv = v.to(pv.device)
+            d = (pv[None, :] == vv[:, None]).to(torch.int32)     # [R, P]
+            out.append(torch.zeros((v.shape[0], self.m_pad),
+                                   dtype=torch.int32,
+                                   device=pv.device).index_add_(1, pe, d))
+        return metrics._model_psum(out, v.device)
 
 
 def _rows_of(hga, ew_pop=None):
     """``hga`` itself when it already is a row geometry (a stack of
-    instances), else the level wrapped as one."""
+    instances), else the level (or a level's pin blocks, a ``_Level``
+    with ``pin_axis``) wrapped as one on the rows' own weights."""
     if isinstance(hga, HypergraphArrays):
         return _Level(hga, ew_pop)
+    if isinstance(hga, _Level):
+        return _Level(hga.hga, ew_pop, pin_axis=hga.pin_axis)
     return hga
 
 
@@ -437,17 +464,30 @@ def _cap_for(hga: HypergraphArrays, k: int, eps: float, target=None):
     return popshard.device_put_cached(cap, target)
 
 
-def _mesh_dispatch(hga: HypergraphArrays, k: int, eps: float):
+def _mesh_dispatch(hga: HypergraphArrays, k: int, eps: float,
+                   model_shard: str | None = None):
     """Shared setup of a mesh-route dispatch (both tiers): the mesh of
-    the pool of hga's device type, its "pop" size and row placement, and
-    the level's structure and cap on every shard, placed once per
-    (level, device) through the placement cache.  The structure is
-    replicated, so the budget checks a model shard count of 1."""
+    the pool of hga's device type, its "pop" size and row placement, the
+    level's cap on every shard, and the level's structure on every shard
+    as ``_Level`` arguments ``(hga, pin_axis)``: replicated, or, when the
+    model route is on (``model_shard``/``REPRO_MODEL_SHARD`` and a real
+    "model" axis dividing the pin padding), in row blocks over "model"
+    (``popshard.model_put_cached``).  Placed once per (level, mesh)
+    through the placement cache; the budget checks the pin tables
+    divided by the model size the dispatch uses."""
     mesh = popshard.pop_mesh(hga.device)
     rep = popshard.replicated(mesh)
-    popshard.enforce_structure_budget(hga, 1)
-    return (mesh, mesh.shape["pop"], popshard.pop_sharding(mesh),
-            popshard.device_put_cached(hga, rep), _cap_for(hga, k, eps, rep))
+    model = (popshard.resolve_model(model_shard) == "mesh"
+             and popshard.model_axis_active(hga.p_pad, mesh))
+    popshard.enforce_structure_budget(hga,
+                                      mesh.shape["model"] if model else 1)
+    if model:
+        levels = [(blocks[0], blocks)
+                  for blocks in popshard.model_put_cached(hga, mesh)]
+    else:
+        levels = [(h, None) for h in popshard.device_put_cached(hga, rep)]
+    return (mesh, mesh.shape["pop"], popshard.pop_sharding(mesh), levels,
+            _cap_for(hga, k, eps, rep))
 
 
 def _put_rows(x: torch.Tensor, npop: int, pop_sh) -> list:
@@ -465,12 +505,13 @@ def _population_shard_devices(device) -> list | None:
 
 
 def _member_cuts(hga: HypergraphArrays, parts: torch.Tensor,
-                 ew_pop: torch.Tensor | None, k: int) -> torch.Tensor:
+                 ew_pop: torch.Tensor | None, k: int,
+                 pin_axis=None) -> torch.Tensor:
     """[alpha] f32 cuts, on each member's own row when ``ew_pop`` is
-    given."""
-    if ew_pop is None:
-        return metrics.cutsize_population(hga, parts, k)
-    return metrics.cutsize_population_weighted(hga, parts, ew_pop, k)
+    given (Phi over the pin blocks of ``pin_axis`` on the model route)."""
+    return metrics.cuts_from_phi(
+        hga, metrics.pins_in_block_population(hga, parts, k, pin_axis),
+        ew_pop)
 
 
 def lp_round(hga: HypergraphArrays, part: torch.Tensor, k: int,
@@ -540,7 +581,7 @@ def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
     Returns (parts [alpha, n_pad] int32 on hga's device, cuts [alpha]
     float64)."""
     dev = hga.device
-    path = _check_slice_options(shard, model_shard, dev)
+    path = _routes(shard, model_shard, dev)
     cap = _cap_for(hga, k, eps)
     parts = pad_parts(parts, hga.n_pad, dev)
     inc, mb = _migration_args(incumbent, mig_budget, hga.n_pad, dev)
@@ -551,7 +592,8 @@ def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
         edge_weights_pop, dtype=torch.float32, device=dev))
     mesh = None
     if path == "mesh" and alpha > 1:
-        mesh, npop, pop_sh, hga_m, cap_m = _mesh_dispatch(hga, k, eps)
+        mesh, npop, pop_sh, lvl_m, cap_m = _mesh_dispatch(hga, k, eps,
+                                                          model_shard)
         devs = mesh.pop_devices
         ewo_m = [None if ewo is None else ewo.to(d) for d in devs]
         inc_m = [None if inc is None else inc.to(d) for d in devs]
@@ -588,7 +630,8 @@ def lp_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
                 na = len(idx)
                 ew_s = ([None] * npop if sub_ew is None
                         else _put_rows(sub_ew, npop, pop_sh))
-                shards = [dict(lv=_Level(hga_m[s], ew_s[s], ewo_m[s]),
+                shards = [dict(lv=_Level(lvl_m[s][0], ew_s[s], ewo_m[s],
+                                         lvl_m[s][1]),
                                parts=p, cuts=c, fracs=f, cap=cap_m[s],
                                incumbent=inc_m[s], mig_budget=mb_m[s])
                           for s, (p, c, f) in enumerate(zip(
@@ -748,11 +791,13 @@ def _fm_pass_population_impl(hga, parts: torch.Tensor, k: int,
     # the "moved" flag stays last: ``_run_fm_steps`` reads ``state[-1]``
     state += (torch.ones(alpha, dtype=torch.bool, device=dev),)
     n_steps = int(budget.max()) if budget is not None else steps
-    state = _run_fm_steps(step, state, n_steps)
+    state = _run_fm_steps(step, state, n_steps,
+                          getattr(lv, "single_device", True))
     return state[6], state[5]
 
 
-def _run_fm_steps(step, state: tuple, steps: int) -> tuple:
+def _run_fm_steps(step, state: tuple, steps: int,
+                  capture: bool = True) -> tuple:
     """Run ``steps`` FM move steps from ``state`` (its last entry is the
     per-member "moved" flag), stopping at the first multiple of
     ``FM_FLAG_EVERY`` steps after which no member moved.
@@ -765,13 +810,14 @@ def _run_fm_steps(step, state: tuple, steps: int) -> tuple:
     same kernels in the same order, so the result is the eager one.  A
     kernel wrapper counts its launch when the capture records it, where
     nothing runs; those counts are moved to the replays, each of which
-    runs every recorded launch once."""
+    runs every recorded launch once.  A step that spans devices (pin
+    blocks on other cards, ``capture`` False) is dispatched eagerly."""
     from repro_torch.kernels import ops
     t = 0
     graph = None
     while t < steps:
         n = min(FM_FLAG_EVERY, steps - t)
-        if state[0].is_cuda and n == FM_FLAG_EVERY:
+        if capture and state[0].is_cuda and n == FM_FLAG_EVERY:
             if graph is None:
                 graph, recorded = _capture_fm_steps(step, state, n)
             graph.replay()
@@ -866,7 +912,7 @@ def fm_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
     gives the same bits.  Returns (parts [alpha, n_pad], cuts [alpha]
     float64)."""
     dev = hga.device
-    path = _check_slice_options(shard, model_shard, dev)
+    path = _routes(shard, model_shard, dev)
     cap = _cap_for(hga, k, eps)
     parts = pad_parts(parts, hga.n_pad, dev)
     inc, mb = _migration_args(incumbent, mig_budget, hga.n_pad, dev)
@@ -878,8 +924,13 @@ def fm_refine_population(hga: HypergraphArrays, parts, k: int, eps: float,
     steps = step_budget or int(min(hga.n_pad, 1024))
     devs = _population_shard_devices(dev) if path == "chunk" else None
     if path == "mesh":
-        mesh, npop, pop_sh, hga_d, cap_d = _mesh_dispatch(hga, k, eps)
+        mesh, npop, pop_sh, lvl_d, cap_d = _mesh_dispatch(hga, k, eps,
+                                                          model_shard)
         devs = list(mesh.pop_devices)
+        # a shard's rows refine its structure (its pin blocks on the
+        # model route)
+        hga_d = [h if blocks is None else _Level(h, pin_axis=blocks)
+                 for h, blocks in lvl_d]
     else:
         popshard.enforce_structure_budget(hga, 1)
         if devs:

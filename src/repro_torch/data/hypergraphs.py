@@ -74,6 +74,42 @@ def _modular_netlist(n: int, m: int, seed: int, n_modules: int,
     return Hypergraph.from_edge_lists(edges, n=n)
 
 
+def giant_netlist(n: int, m: int, seed: int = 0, max_pins: int = 8,
+                  p_local: float = 0.85) -> Hypergraph:
+    """Vectorised netlist generator for giant instances (n >= 1e6), the
+    instances the model axis exists for (DESIGN.md §15): the CSR arrays
+    come straight from numpy index arithmetic.
+
+    * net sizes follow the 2-pin-dominated mix, capped at ``max_pins``
+      (a small cap keeps every coarsening level eligible for the
+      shard-local contraction, which needs ``max |e| <= p_pad / S``);
+    * a net's pins are an arithmetic progression ``base + stride * j``:
+      stride 1 for local nets, a large random stride for the global
+      tail, so pins are distinct by construction.
+    """
+    assert n > 4 * max_pins and m > 0
+    rng = np.random.default_rng(seed)
+    u = rng.random(m)
+    sizes = np.where(
+        u < 0.55, 2,
+        np.where(u < 0.8, 3,
+                 np.where(u < 0.92, 4,
+                          rng.integers(5, max_pins + 1, size=m))))
+    sizes = sizes.astype(np.int64)
+    stride = np.where(rng.random(m) < p_local, 1,
+                      rng.integers(1, max(n // max_pins, 2), size=m))
+    span = stride * (sizes - 1)
+    base = (rng.random(m) * (n - span)).astype(np.int64)
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    j = np.arange(offsets[-1], dtype=np.int64) - np.repeat(
+        offsets[:-1], sizes)
+    pins = np.repeat(base, sizes) + np.repeat(stride, sizes) * j
+    return Hypergraph(
+        n=n, m=m, pins=pins.astype(np.int32), edge_offsets=offsets,
+        vertex_weights=np.ones(n, np.float32),
+        edge_weights=np.ones(m, np.float32))
+
+
 def titan_like(name: str, scale: float = 1.0) -> Hypergraph:
     """Titan23-like FPGA netlist.  ``scale`` shrinks the instance for CI
     budgets while keeping the structure."""

@@ -324,9 +324,14 @@ class PartitionService:
     schedule, usually none).
 
     Every dispatch runs on ``device`` (default ``"cuda"``; asking for a
-    card where none is present raises).  ``shard``/``model_shard`` other
-    than ``None``/``"off"`` belong to later slices (the service's routes,
-    item 13b; the model axis, 13c) and raise ``NotImplementedError``."""
+    card where none is present raises).  ``shard`` (None =
+    ``REPRO_POP_SHARD``) routes every dispatch over the pool of the
+    device's type (``mesh``, ``chunk``, ``off``; DESIGN.md §11), and
+    ``model_shard`` (None = ``REPRO_MODEL_SHARD``) splits the pin tables
+    over the mesh's "model" axis (§15); every route gives the solo
+    answer's bits.  A device loss shrinks that pool, a pool of logical
+    shards included (``popshard.set_device_limit``), and the next
+    dispatch runs on the survivors' mesh."""
 
     def __init__(self, slots: Optional[int] = None,
                  buckets: Optional[Sequence[int]] = None,
@@ -345,10 +350,7 @@ class PartitionService:
                  sched: Optional[str] = None,
                  sched_policy: str = "ucb1",
                  device: str | torch.device = "cuda"):
-        refine_mod._check_slice_options(shard, model_shard, "cpu")
-        if shard is not None and shard.strip().lower() in ("mesh", "chunk"):
-            refine_mod._later_slice(f"the service's shard={shard!r}",
-                                    "the service's routes, item 13b")
+        refine_mod._routes(shard, model_shard, "cpu")
         self.device = resolve_device(device)
         self.n_slots = slots if slots is not None else serve_slots()
         if buckets is not None:

@@ -27,7 +27,9 @@ paths), and an integer-weighted level must take none of those paths.
 A drifted refresh stacked with other requests, or split over logical
 shards of the card (the population axis, DESIGN.md §11), is held to
 its solo run bit for bit, and so are the LP and FM routes over 4
-shards to the single-device route.
+shards to the single-device route; the model axis over a (2, 2) grid of
+logical shards (LP and FM on integer-valued member rows, the sharded
+contraction) is bit-equal to the replicated route.
 The partition service on the card is held to its solo runs bit for bit,
 through a device loss too, and checkpoints round-trip CUDA tensors
 exactly.  The LM's SMOKE models (f32, TF32 off) are held to their CPU
@@ -50,7 +52,7 @@ import torch
 from port_parity import assert_bit_equal
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import incremental, instances, metrics, popshard, refine
-from repro_torch.core.dcoarsen import build_hierarchy
+from repro_torch.core.dcoarsen import build_hierarchy, population_coarsen
 from repro_torch.core.hypergraph import HypergraphArrays, contract_arrays
 from repro_torch.core.vcycle import vcycle, vcycle_instances
 from repro_torch.data.hypergraphs import (_modular_netlist, drift_stream,
@@ -763,6 +765,117 @@ def test_population_routes_over_four_shards_on_card(card, route, tier):
     assert np.array_equal(got[1], want[1])
     assert counts["gain_table" if tier == "lp"
                   else "rating_segment_sum_batch"] > 0
+
+
+# --------------------------------------------------------------------------
+# the model axis over a (pop 2, model 2) grid of logical shards (13c), and
+# the service over a pool (13b)
+# --------------------------------------------------------------------------
+def _model_grid(card, monkeypatch):
+    monkeypatch.setenv("REPRO_POP_MESH_MODEL", "2")
+    popshard.set_logical_shards(4, card)
+    assert popshard.pop_mesh(card).shape == {"pop": 2, "model": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["lp", "fm"])
+def test_model_route_on_member_rows_on_card(card, tier, monkeypatch):
+    """LP and FM of 4 members on integer-valued member rows, the pins in
+    two blocks over "model": parts and cuts bit-equal to ``off``; the
+    member-row gain sums launch #4 on every block, and no gain kernel
+    (#1/#2) runs (the blocks carry no incidence layout)."""
+    hg = _netlist(250, 330, 43)
+    hga = hg.arrays(device=card)
+    k = 8
+    rng = np.random.default_rng(43)
+    parts = np.stack([refine.rebalance(
+        hg.vertex_weights, rng.integers(0, k, hg.n).astype(np.int32), k,
+        0.08) for _ in range(4)]).astype(np.int32)
+    ew = np.zeros((4, hga.m_pad), np.float32)
+    ew[:, : hg.m] = hg.edge_weights * rng.integers(1, 4, (4, hg.m))
+    tier_fn = (refine.lp_refine_population if tier == "lp"
+               else refine.fm_refine_population)
+    run = lambda **kw: tier_fn(hga, parts, k, 0.08, edge_weights_pop=ew,
+                               **kw)
+    want = run(shard="off")
+    _model_grid(card, monkeypatch)
+    try:
+        ops.reset_launch_counts()
+        got = run(shard="mesh", model_shard="mesh")
+        counts = ops.launch_counts()
+    finally:
+        popshard.set_logical_shards(None)
+    assert torch.equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
+    assert counts["rating_segment_sum_batch"] >= 4
+    assert counts["gain_table"] == counts["gain_stream"] == 0
+
+
+@pytest.mark.cuda
+def test_sharded_contraction_on_card(card, monkeypatch):
+    """The device engine's hierarchy and the cohort's shared hierarchy,
+    contracted over "model": every level's leaves bit-equal to the
+    replicated contraction's on the card."""
+    hg = _netlist(600, 800, 44)
+    rng = np.random.default_rng(44)
+    base = (np.arange(hg.n) * 4 // hg.n).astype(np.int32)
+    parts = np.stack([np.where(rng.random(hg.n) < 0.02,
+                               rng.integers(0, 4, hg.n), base)
+                      for _ in range(3)]).astype(np.int32)
+    w_pop = np.stack([hg.edge_weights * (1.0 + 0.1 * rng.integers(
+        0, 3, hg.m)) for _ in range(3)]).astype(np.float32)
+
+    def builds(model):
+        return (build_hierarchy(hg, 4, seed=3, path="device",
+                                contraction_limit_factor=16,
+                                model_shard=model, device=card),
+                population_coarsen(hg, parts, w_pop, 4, seed=7,
+                                   contraction_limit_factor=8,
+                                   model_shard=model, device=card))
+    want = builds("off")
+    _model_grid(card, monkeypatch)
+    try:
+        got = builds("mesh")
+    finally:
+        popshard.set_logical_shards(None)
+    for g, w in zip(got, want):
+        assert g.num_levels == w.num_levels > 2
+        for lg, lw in zip(g.levels, w.levels):
+            for f in ("pin_vertex", "pin_edge", "vertex_weights",
+                      "edge_weights", "edge_sizes"):
+                assert torch.equal(getattr(lg.hga, f), getattr(lw.hga, f)), f
+        if hasattr(g.levels[0], "ew_pop"):
+            for lg, lw in zip(g.levels, w.levels):
+                assert torch.equal(lg.ew_pop, lw.ew_pop)
+                assert torch.equal(lg.parts, lw.parts)
+
+
+@pytest.mark.cuda
+def test_service_device_loss_over_two_logical_shards_on_card(card):
+    """The service on the ``mesh`` route over 2 logical shards of the
+    card loses one at tick 2: the pool shrinks to one, every request
+    resumes from its snapshot on the survivors' mesh, and every answer is
+    bit-equal to solo (the chip script's service phase runs the soak's
+    plan on both routes)."""
+    reqs = _service_requests()
+    popshard.set_logical_shards(2, card)
+    try:
+        svc = _card_service(card, shard="mesh", ckpt_every=1,
+                            fault_plan=FaultPlan.parse("2:device_loss"))
+        for r in reqs:
+            svc.submit(r)
+        svc.drain()
+        assert len(popshard.local_devices(card)) == 1
+    finally:
+        restore_device_pool(card)
+        popshard.set_logical_shards(None)
+    loss = [e for e in svc.events if e["kind"] == "device_loss"]
+    assert len(loss) == 1 and loss[0]["survivors"] == 1
+    for r in reqs:
+        part, cut = svc.solve_solo(r)
+        got = svc.results[r.name]
+        assert got.status == "recovered"
+        assert np.array_equal(got.part, part) and got.cut == cut
 
 
 # --------------------------------------------------------------------------

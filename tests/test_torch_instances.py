@@ -30,7 +30,7 @@ from repro.core.impart import ImpartConfig as RefConfig
 from repro.core.impart import impart_partition_instances as ref_instances
 from repro.core.vcycle import vcycle_instances as ref_vcycle_instances
 from repro.data import hypergraphs as jdata
-from repro_torch.core import instances, refine
+from repro_torch.core import instances, popshard, refine
 from repro_torch.core.hypergraph import _arrays_to_host
 from repro_torch.core.impart import (ImpartConfig, impart_partition,
                                      impart_partition_instances)
@@ -325,13 +325,12 @@ def test_impart_instances_validation(kw, match, duo):
 @pytest.mark.parametrize("how", ["incumbent entry", "incumbents",
                                  "shard mesh", "shard chunk",
                                  "model_shard mesh", "pop_shard config"])
-def test_later_slices_raise(how, duo):
-    """The model axis belongs to a later slice and raises; the mesh and
-    chunk routes are ported (over the CPU's pool of one device they give
-    the single-device bits), and so are the incumbent entries and stacks
-    (bounded migration): an incumbent entry equals its solo budgeted
-    refinement, and a stack carries its incumbent and an infinite budget
-    for a None one."""
+def test_routed_and_incumbent_entries_equal_solo(how, duo, monkeypatch):
+    """The mesh and chunk routes (over the CPU's pool of one device) and
+    the model axis (with ``shard="mesh"``, over a (2, 2) pool of logical
+    shards of the CPU) give the single-device bits; an incumbent entry
+    (bounded migration) equals its solo budgeted refinement, and a stack
+    carries its incumbent and an infinite budget for a None one."""
     hga = port_hg(duo[0]).arrays(device="cpu")
     parts = np.zeros((2, hga.n_pad), np.int32)
     if how == "incumbent entry":
@@ -350,22 +349,30 @@ def test_later_slices_raise(how, duo):
         assert bool(torch.isinf(batch.mig_budget).all())
         return
     if how == "pop_shard config":
+        # the memetic driver with recombination and mutation on, at alpha
+        # 2, beta 2 and 2 LP iterations (the route's plumbing does not
+        # depend on the depth)
+        cfg = dict(k=2, alpha=2, beta=2, lp_iters=2)
         got, = impart_partition_instances(
-            [port_hg(duo[0])], [ImpartConfig(k=2, pop_shard="mesh")],
+            [port_hg(duo[0])], [ImpartConfig(pop_shard="mesh", **cfg)],
             device="cpu")
         want, = impart_partition_instances(
-            [port_hg(duo[0])], [ImpartConfig(k=2)], device="cpu")
+            [port_hg(duo[0])], [ImpartConfig(**cfg)], device="cpu")
         assert_bit_equal(got.part, want.part, "part")
         assert got.cut == want.cut
         return
     arg, route = how.split()
     entries = [(hga, parts, 2, 0.1), (hga, parts + 1, 2, 0.1)]
-    if arg == "model_shard":
-        with pytest.raises(NotImplementedError, match="later slice"):
-            instances.refine_grouped(entries, device="cpu", **{arg: route})
-        return
-    got = instances.refine_grouped(entries, device="cpu", **{arg: route})
     want = instances.refine_grouped(entries, device="cpu")
+    kw = {arg: route}
+    if arg == "model_shard":
+        kw["shard"] = "mesh"
+        monkeypatch.setenv("REPRO_POP_MESH_MODEL", "2")
+        popshard.set_logical_shards(4, "cpu")
+    try:
+        got = instances.refine_grouped(entries, device="cpu", **kw)
+    finally:
+        popshard.set_logical_shards(None)
     for (gp, gc), (wp, wc) in zip(got, want):
         assert_bit_equal(gp, wp, "parts")
         assert_bit_equal(gc, wc, "cuts")

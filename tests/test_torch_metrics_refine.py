@@ -16,7 +16,7 @@ import jax.numpy as jnp
 
 from repro.core import metrics as jmetrics
 from repro.core import refine as jrefine
-from repro_torch.core import metrics, refine
+from repro_torch.core import metrics, popshard, refine
 
 
 def _parts(hg, k, alpha, seed, n_pad):
@@ -177,26 +177,33 @@ def test_rebalance_equal(small_hg):
     dict(shard="mesh"), dict(model_shard="mesh"),
     dict(incumbent=np.zeros(4, np.int32), mig_budget=1.0)],
     ids=["shard", "model_shard", "incumbent"])
-def test_later_slice_options_raise(kw, tiny_hg):
-    """The model axis belongs to a later slice and raises; the incumbent
-    branch (bounded migration) is ported and keeps its budget, and so is
-    the mesh route, which over the CPU's pool of one device gives the
-    single-device bits."""
+def test_refine_options_keep_their_bits(kw, tiny_hg, monkeypatch):
+    """The mesh route (over the CPU's pool of one device) and the model
+    axis (with ``shard="mesh"``, 2 members over a (2, 2) pool of logical
+    shards of the CPU) give the single-device bits; the incumbent branch
+    (bounded migration) keeps its budget."""
     hga = port_arrays(tiny_hg.structural_copy().arrays())
     parts = np.zeros((1, hga.n_pad), np.int32)
-    if "shard" in kw:
-        got = refine.refine_population(hga, parts, 2, 0.1, device=CPU, **kw)
-        want = refine.refine_population(hga, parts, 2, 0.1, device=CPU)
-        assert_bit_equal(got[0], want[0], "parts")
-        assert_bit_equal(got[1], want[1], "cuts")
-    elif "incumbent" in kw:
+    if "incumbent" in kw:
         out, _ = refine.refine_population(hga, parts, 2, 0.1, device=CPU,
                                           **kw)
         inc = refine.pad_part(kw["incumbent"], hga.n_pad)
         moved = float(hga.vertex_weights[out[0] != inc].sum())
         assert moved <= kw["mig_budget"] + 1e-6
     else:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            refine.refine_population(hga, parts, 2, 0.1, device=CPU, **kw)
+        if "model_shard" in kw:
+            kw = dict(kw, shard="mesh")
+            parts = np.stack([parts[0], parts[0] + 1])
+            monkeypatch.setenv("REPRO_POP_MESH_MODEL", "2")
+            popshard.set_logical_shards(4, CPU)
+        want = refine.refine_population(hga, parts, 2, 0.1, shard="off",
+                                        device=CPU)
+        try:
+            got = refine.refine_population(hga, parts, 2, 0.1, device=CPU,
+                                           **kw)
+        finally:
+            popshard.set_logical_shards(None)
+        assert_bit_equal(got[0], want[0], "parts")
+        assert_bit_equal(got[1], want[1], "cuts")
     with pytest.raises(ValueError, match="lives on"):
         refine.refine_population(hga, parts, 2, 0.1, device="meta")

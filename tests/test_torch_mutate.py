@@ -197,10 +197,20 @@ def test_population_matching_with_reference_jitter(seed, small_hg):
     assert_bit_equal(got_cid, want_cid, "cluster ids")
 
 
-def test_population_hierarchy_and_vcycle_batch_equals_loop(small_hg):
+@pytest.fixture(scope="module")
+def cohort_hg():
+    """A netlist of n 300 (five cohort levels, FM on each): the real-
+    valued FM steps' fixed-order sums are slow on the CPU."""
+    from repro.data.hypergraphs import _modular_netlist
+    return _modular_netlist(300, 400, seed=11, n_modules=8, p_local=0.8,
+                            fanout_tail=1.5)
+
+
+def test_population_hierarchy_and_vcycle_batch_equals_loop(cohort_hg):
     """The port's cohort V-cycle: batch and loop bit-equal per member,
     exact projection of every member's cut through the hierarchy, and
     per-member elitism on the member's own weights."""
+    small_hg = cohort_hg
     k, eps, alpha = 4, 0.08, 3
     # a cohort of near-twins, as mutation flags: one base, a few flips
     parts = np.repeat(_parts(small_hg, k, 1, seed=5), alpha, axis=0)
@@ -241,9 +251,11 @@ def test_population_hierarchy_and_vcycle_batch_equals_loop(small_hg):
         vcycle_population(phg, parts, ew, k, eps, path="bogus", device=CPU)
 
 
-def test_mutate_population_twins(small_hg, monkeypatch):
+def test_mutate_population_twins(cohort_hg, monkeypatch):
     """Identical offspring are flagged and re-partitioned; results are
-    balanced and report their true cuts, on both cohort paths."""
+    balanced and report their true cuts, on both cohort paths (on the
+    cohort netlist of n 300: the cohort's FM steps set the time)."""
+    small_hg = cohort_hg
     k, eps = 4, 0.08
     hga = small_hg.structural_copy().arrays()
     base = _parts(small_hg, k, 1, seed=8)[0]

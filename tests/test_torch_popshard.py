@@ -16,7 +16,8 @@ splits, pads and exchanges as on P devices.  Bars:
   reference's cuts to rtol 1e-6 (the two packages add in other orders);
 * a stacked or sharded instance is bit-equal to its solo run, drifted
   real-valued weights included (the CPU side of F5's gate);
-* the model axis and the service's routes still raise.
+* the model axis and the service's routes, lifted from their refusals,
+  run over a (2, 2) pool and give the single-device bits.
 """
 import gc
 import weakref
@@ -36,7 +37,7 @@ from repro_torch.core import instances, metrics, popshard, refine
 from repro_torch.core.impart import (ImpartConfig, impart_partition,
                                      impart_partition_instances)
 from repro_torch.data.hypergraphs import drift_stream
-from repro_torch.serve import PartitionService
+from repro_torch.serve import PartitionRequest, PartitionService
 
 ALPHA = 5
 POOLS = (1, 2, 4)
@@ -384,23 +385,50 @@ def test_fixed_order_sums_keep_cpu_bits(drifted):
 
 
 # --------------------------------------------------------------------------
-# what stays out of this slice
+# the model axis and the service's routes over a (2, 2) pool
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("where", ["refine", "impart", "grouped",
                                    "service mesh", "service chunk"])
-def test_model_axis_and_service_routes_raise(where, tiny_hg):
+def test_model_axis_and_service_routes_equal_off(where, tiny_hg,
+                                                 monkeypatch):
+    """These options raised before the model axis and the service's
+    routes were ported; each now runs over a (pop 2, model 2) pool of
+    logical shards and gives the single-device bits."""
     hga = port_arrays(tiny_hg.arrays())
     parts = np.zeros((2, hga.n_pad), np.int32)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    parts[1] = 1
+
+    def run(**kw):
         if where == "refine":
-            refine.refine_population(hga, parts, 2, 0.1, model_shard="mesh",
-                                     device=CPU)
-        elif where == "impart":
-            impart_partition(port_hg(tiny_hg),
-                             ImpartConfig(k=2, model_shard="mesh"),
-                             device=CPU)
-        elif where == "grouped":
-            instances.refine_grouped([(hga, parts, 2, 0.1)],
-                                     model_shard="mesh", device=CPU)
-        else:
-            PartitionService(shard=where.split()[1], device=CPU)
+            return refine.refine_population(hga, parts, 2, 0.1, device=CPU,
+                                            **kw)
+        if where == "impart":
+            res = impart_partition(port_hg(tiny_hg),
+                                   ImpartConfig(k=2, **kw), device=CPU)
+            return res.part, res.cut
+        if where == "grouped":
+            return instances.refine_grouped([(hga, parts, 2, 0.1)],
+                                            device=CPU, **kw)[0]
+        svc = PartitionService(slots=1, alpha=2, lp_iters=2, device=CPU,
+                               **kw)
+        req = PartitionRequest(name="t", hg=port_hg(tiny_hg), k=2, eps=0.1)
+        svc.submit(req)
+        svc.drain()
+        return svc.results["t"].part, svc.results["t"].cut
+
+    model = dict(model_shard="mesh")
+    if where.startswith("service"):
+        model = dict(shard=where.split()[1])
+    elif where == "impart":
+        model["pop_shard"] = "mesh"
+    else:
+        model["shard"] = "mesh"
+    want = run()
+    monkeypatch.setenv("REPRO_POP_MESH_MODEL", "2")
+    popshard.set_logical_shards(4, CPU)
+    try:
+        got = run(**model)
+    finally:
+        popshard.set_logical_shards(None)
+    assert_bit_equal(got[0], want[0], "parts")
+    assert_bit_equal(got[1], want[1], "cuts")

@@ -18,6 +18,7 @@ from repro.core import metrics as jmetrics
 from repro.core import refine as jrefine
 from repro.core.hypergraph import Hypergraph as RefHypergraph
 from repro.core.hypergraph import contract as ref_contract
+from repro.data.hypergraphs import _modular_netlist
 from repro_torch.core import ilp, metrics, popshard, recombine, refine
 from repro_torch.core.hypergraph import contract
 from repro_torch.core.vcycle import vcycle
@@ -100,20 +101,31 @@ def test_ils_clustered_bit_equal(seed, restarts, small_hg):
 
 @pytest.mark.parametrize("k", [4, 8])
 def test_ring_recombination_bit_equal(k, small_hg, monkeypatch):
-    """k = 4 takes the exact branch and bound, k = 8 the exact and the
-    ILS branches."""
+    """k = 4 takes the exact branch and bound, k = 8 the ILS branch.
+    k = 4 runs on a netlist of n 150: its overlay has at most k^2 = 16
+    clusters at any n, so the branch is the same, and the branch and
+    bound's node budget, not n, sets its time."""
     monkeypatch.setenv("REPRO_COARSEN_PATH", "host")
+    hg = small_hg if k == 8 else _modular_netlist(
+        150, 200, seed=11, n_modules=8, p_local=0.8, fanout_tail=1.5)
+    branches = []
+    exact, ils = recombine.ilp_mod.solve_exact, recombine._ils_clustered
+    monkeypatch.setattr(recombine.ilp_mod, "solve_exact", lambda *a, **kw: (
+        branches.append("exact"), exact(*a, **kw))[1])
+    monkeypatch.setattr(recombine, "_ils_clustered", lambda *a, **kw: (
+        branches.append("ils"), ils(*a, **kw))[1])
     eps = 0.08
-    parts, cuts = _population(small_hg, k, eps, 3, seed=20 + k)
-    want_p, want_c = jrecombine.ring_recombination(small_hg, parts, cuts, k,
+    parts, cuts = _population(hg, k, eps, 3, seed=20 + k)
+    want_p, want_c = jrecombine.ring_recombination(hg, parts, cuts, k,
                                                    eps, seed=5)
-    got_p, got_c = recombine.ring_recombination(port_hg(small_hg), parts,
+    got_p, got_c = recombine.ring_recombination(port_hg(hg), parts,
                                                 cuts, k, eps, seed=5,
                                                 device=CPU)
     assert_bit_equal(got_c, want_c, "cuts")
     assert_bit_equal(got_p, want_p, "offspring")
     for i in range(3):
         assert got_c[i] <= min(cuts[i], cuts[(i + 1) % 3]) + 1e-6
+    assert set(branches) == ({"exact"} if k == 4 else {"ils"})
 
 
 @pytest.mark.parametrize("k", [4, 8])

@@ -285,13 +285,19 @@ def test_bandit_service_terminal_and_scheduler_through_snapshot(stream,
 
 
 # --------------------------------------------------------------------------
-# options of later slices, and the card by default
+# the multi-device options (once refused), and the card by default
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("kw", [dict(shard="mesh"), dict(shard="chunk"),
                                 dict(model_shard="mesh")])
 def test_multi_device_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _svc(**kw)
+    """These options raised before the service's routes and the model
+    axis were ported: now the service takes them (and passes them to
+    every dispatch), and an unknown route still raises."""
+    svc = _svc(**kw)
+    assert (svc.shard, svc.model_shard) == (kw.get("shard"),
+                                            kw.get("model_shard"))
+    with pytest.raises(ValueError, match="unknown"):
+        _svc(**{key: "pod" for key in kw})
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(device="cuda"),

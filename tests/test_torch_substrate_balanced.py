@@ -28,7 +28,7 @@ def _host_cut(rows, part):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_embedding_rows_balanced_within_band(seed):
-    rows, n_rows = compact_rows(40)
+    rows, n_rows = compact_rows(24)
     k = 4
     want = jplacement.partition_embedding_rows(rows, n_rows, k, eps=EPS,
                                                seed=seed)
